@@ -1,0 +1,18 @@
+"""PyTorch/CUDA port of ``neighbour_feature_pooling_tpu``.
+
+The JAX package beside this one is the reference; module paths and names
+here mirror it so each counterpart is easy to find. Plain tensor work is
+PyTorch (convs, BatchNorm, matmuls stay cuDNN/cuBLAS, as the JAX package
+left them to XLA); every Pallas TPU kernel on a ported path is a CUDA
+kernel written by hand for Hopper (``csrc/``), built at first use.
+
+Entry points run on ``device="cuda"`` unless the caller passes
+``device="cpu"``; on the CPU each kernel wrapper takes its plain PyTorch
+version. This package imports neither JAX nor the JAX package.
+
+Ported so far: the serving path of ResNet18 + ``gap_only``/``texture_nfp``
+(``serve.Predictor``) with the small-map NFP kernel. See ``ROADMAP.md``
+for what is still to come.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,263 @@
+"""Similarity / distance measure registry for Neighborhood Feature Pooling.
+
+Counterpart of ``neighbour_feature_pooling_tpu/ops/measures.py``. Every
+measure compares a *center* feature vector with a *neighbor* feature vector
+along the channel dimension and reduces it to one scalar per spatial
+position and neighbor. Each function below is written term for term from
+the JAX one, so the plain NFP version (``neighborhood.nfp_reference``) and
+the CUDA kernel (``csrc/nfp_small.cu``) compute the same arithmetic.
+
+Conventions: *distance* measures (``norm``, ``rmse``, ``emd``,
+``canberra``, ``hellinger``, ``chisquared1/2``, ``jeffrey``,
+``squaredchord``, ``mahalanobis``) are negated when ``similarity=True``;
+*similarity* measures are returned as-is then, and with
+``similarity=False`` are negated (``dot``, ``attention``, ``gfc``,
+``pearson``, ``smith``) or flipped as ``1 - x`` (``cosine``, ``geman``,
+``scs``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+
+from .common import safe_sqrt
+
+__all__ = [
+    "MeasureConfig",
+    "Measure",
+    "MEASURES",
+    "get_measure",
+    "canonical_measure_name",
+    "MEASURE_NAMES",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeasureConfig:
+    """Static hyper-parameters threaded through measure evaluation:
+    ``eps`` the stability constant, ``p`` the norm order / SCS sharpening
+    exponent, ``q_scs`` the SCS denominator stabilizer, ``inv_var`` the
+    per-channel inverse variance of ``mahalanobis`` (broadcastable against
+    the operands)."""
+
+    eps: float = 1e-6
+    p: float = 1.0
+    q_scs: float = 1e-6
+    inv_var: Optional[torch.Tensor] = None
+
+
+# --------------------------------------------------------------------------
+# Pairwise kernels: (center, neighbor, dim, cfg) -> reduced-over-dim tensor.
+# --------------------------------------------------------------------------
+
+
+def _norm(c, n, dim, cfg):
+    """L-p norm of (center - neighbor) over channels."""
+    d = c - n
+    p = cfg.p
+    if p == 1:
+        return torch.sum(torch.abs(d), dim=dim)
+    if p == 2:
+        return safe_sqrt(torch.sum(d * d, dim=dim))
+    return torch.sum(torch.abs(d) ** p, dim=dim) ** (1.0 / p)
+
+
+def _cosine(c, n, dim, cfg):
+    """Cosine similarity; each L2 norm is clamped from below at ``eps``
+    separately (not ``F.cosine_similarity``, which clamps the product)."""
+    dot = torch.sum(c * n, dim=dim)
+    nc = safe_sqrt(torch.sum(c * c, dim=dim))
+    nn_ = safe_sqrt(torch.sum(n * n, dim=dim))
+    return dot / (torch.clamp(nc, min=cfg.eps) * torch.clamp(nn_, min=cfg.eps))
+
+
+def _dot(c, n, dim, cfg):
+    return torch.sum(c * n, dim=dim)
+
+
+def _rmse(c, n, dim, cfg):
+    d = c - n
+    return safe_sqrt(torch.mean(d * d, dim=dim))
+
+
+def _geman(c, n, dim, cfg):
+    """Geman–McClure robust measure, mean over channels."""
+    d2 = (c - n) ** 2
+    return torch.mean(d2 / (d2 + cfg.eps), dim=dim)
+
+
+def _emd(c, n, dim, cfg):
+    """Simplified Earth Mover's Distance = L1."""
+    return torch.sum(torch.abs(c - n), dim=dim)
+
+
+def _canberra(c, n, dim, cfg):
+    return torch.sum(torch.abs(c - n) / (torch.abs(c) + torch.abs(n) + cfg.eps),
+                     dim=dim)
+
+
+def _hellinger(c, n, dim, cfg):
+    """Hellinger distance on |x|+eps surrogates."""
+    a = torch.sqrt(torch.abs(c) + cfg.eps)
+    b = torch.sqrt(torch.abs(n) + cfg.eps)
+    return safe_sqrt(0.5 * torch.sum((a - b) ** 2, dim=dim))
+
+
+def _chisquared1(c, n, dim, cfg):
+    """Chi-squared distance, symmetric denominator."""
+    return torch.sum((c - n) ** 2 / (torch.abs(c) + torch.abs(n) + cfg.eps),
+                     dim=dim)
+
+
+def _chisquared2(c, n, dim, cfg):
+    """Chi-squared distance, center-only denominator."""
+    return torch.sum((c - n) ** 2 / (torch.abs(c) + cfg.eps), dim=dim)
+
+
+def _gfc(c, n, dim, cfg):
+    """Goodness-of-Fit Coefficient: dot / (||c||·||n|| + eps)."""
+    num = torch.sum(c * n, dim=dim)
+    den = (safe_sqrt(torch.sum(c * c, dim=dim))
+           * safe_sqrt(torch.sum(n * n, dim=dim)))
+    return num / (den + cfg.eps)
+
+
+def _pearson(c, n, dim, cfg):
+    """Pearson correlation over channels, centred two-pass form."""
+    cc = c - torch.mean(c, dim=dim, keepdim=True)
+    nc = n - torch.mean(n, dim=dim, keepdim=True)
+    num = torch.sum(cc * nc, dim=dim)
+    den = torch.sqrt(torch.sum(cc * cc, dim=dim) * torch.sum(nc * nc, dim=dim)
+                     + cfg.eps)
+    return num / den
+
+
+def _jeffrey(c, n, dim, cfg):
+    """Jeffrey (symmetric KL) divergence on |x|+eps surrogates."""
+    a = torch.abs(c) + cfg.eps
+    b = torch.abs(n) + cfg.eps
+    log_ab = torch.log(a / b)
+    return torch.sum(a * log_ab - b * log_ab, dim=dim)
+
+
+def _squaredchord(c, n, dim, cfg):
+    a = torch.sqrt(torch.abs(c) + cfg.eps)
+    b = torch.sqrt(torch.abs(n) + cfg.eps)
+    return torch.sum((a - b) ** 2, dim=dim)
+
+
+def _smith(c, n, dim, cfg):
+    """Smith dissimilarity on absolute values."""
+    ca = torch.abs(c)
+    na = torch.abs(n)
+    min_sum = torch.sum(torch.minimum(ca, na), dim=dim)
+    denom = torch.minimum(torch.sum(ca, dim=dim), torch.sum(na, dim=dim)) + cfg.eps
+    return 1.0 - min_sum / denom
+
+
+def _scs_from_cos(cos, p):
+    """``sign(cos) * |cos|**p`` with NaN/Inf scrubbed to 0."""
+    scs = torch.sign(cos) * torch.abs(cos) ** p
+    return torch.nan_to_num(scs, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def _scs(c, n, dim, cfg):
+    """Sharpened cosine similarity, per-sample form, with q-stabilized
+    norms: cos = <c,n> / ((||c||+q)(||n||+q))."""
+    nc = safe_sqrt(torch.sum(c * c, dim=dim)) + cfg.q_scs
+    nn_ = safe_sqrt(torch.sum(n * n, dim=dim)) + cfg.q_scs
+    return _scs_from_cos(torch.sum(c * n, dim=dim) / (nc * nn_), cfg.p)
+
+
+def _mahalanobis(c, n, dim, cfg):
+    """Diagonal-covariance Mahalanobis distance."""
+    if cfg.inv_var is None:
+        raise ValueError(
+            "mahalanobis requires cfg.inv_var (per-channel inverse variance); "
+            "the nfp() entry point computes it automatically."
+        )
+    d = c - n
+    return safe_sqrt(torch.sum(d * d * cfg.inv_var, dim=dim))
+
+
+# --------------------------------------------------------------------------
+# Finalization: distance/similarity sign conventions, per measure.
+# --------------------------------------------------------------------------
+
+_FINALIZE: Dict[str, Callable] = {
+    "neg_if_sim": lambda x, sim: -x if sim else x,
+    "neg_if_dist": lambda x, sim: x if sim else -x,
+    "one_minus_if_dist": lambda x, sim: x if sim else 1.0 - x,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Measure:
+    """A registered NFP measure.
+
+    Attributes:
+      name: canonical CLI name.
+      pairwise: ``f(center, neighbor, dim, cfg)`` reducing ``dim``.
+      finalize_kind: one of the ``_FINALIZE`` keys.
+      needs_softmax_over_neighbors: softmax over the neighbor dimension
+        before finalization (``attention``).
+      is_distance: True if the raw value grows with dissimilarity.
+    """
+
+    name: str
+    pairwise: Callable
+    finalize_kind: str
+    needs_softmax_over_neighbors: bool = False
+    is_distance: bool = False
+
+    def finalize(self, x: torch.Tensor, similarity: bool) -> torch.Tensor:
+        return _FINALIZE[self.finalize_kind](x, similarity)
+
+
+MEASURES: Dict[str, Measure] = {
+    "norm": Measure("norm", _norm, "neg_if_sim", is_distance=True),
+    "cosine": Measure("cosine", _cosine, "one_minus_if_dist"),
+    "dot": Measure("dot", _dot, "neg_if_dist"),
+    "rmse": Measure("rmse", _rmse, "neg_if_sim", is_distance=True),
+    "geman": Measure("geman", _geman, "one_minus_if_dist"),
+    "attention": Measure("attention", _dot, "neg_if_dist", needs_softmax_over_neighbors=True),
+    "emd": Measure("emd", _emd, "neg_if_sim", is_distance=True),
+    "canberra": Measure("canberra", _canberra, "neg_if_sim", is_distance=True),
+    "hellinger": Measure("hellinger", _hellinger, "neg_if_sim", is_distance=True),
+    "chisquared1": Measure("chisquared1", _chisquared1, "neg_if_sim", is_distance=True),
+    "chisquared2": Measure("chisquared2", _chisquared2, "neg_if_sim", is_distance=True),
+    "gfc": Measure("gfc", _gfc, "neg_if_dist"),
+    "pearson": Measure("pearson", _pearson, "neg_if_dist"),
+    "jeffrey": Measure("jeffrey", _jeffrey, "neg_if_sim", is_distance=True),
+    "squaredchord": Measure("squaredchord", _squaredchord, "neg_if_sim", is_distance=True),
+    "smith": Measure("smith", _smith, "neg_if_dist"),
+    "scs": Measure("scs", _scs, "one_minus_if_dist"),
+    "mahalanobis": Measure("mahalanobis", _mahalanobis, "neg_if_sim", is_distance=True),
+}
+
+_ALIASES = {"sharpened_cosine": "scs"}
+
+#: Canonical CLI names, in the reference's CLI order.
+MEASURE_NAMES = [
+    "norm", "cosine", "dot", "rmse", "geman", "attention", "emd",
+    "canberra", "hellinger", "chisquared1", "chisquared2", "gfc",
+    "pearson", "jeffrey", "squaredchord", "smith", "sharpened_cosine", "scs",
+]
+
+
+def canonical_measure_name(name: str) -> str:
+    name = name.lower()
+    return _ALIASES.get(name, name)
+
+
+def get_measure(name: str) -> Measure:
+    key = canonical_measure_name(name)
+    if key not in MEASURES:
+        raise ValueError(
+            f"Similarity measure {name!r} not implemented; "
+            f"available: {sorted(MEASURES)}"
+        )
+    return MEASURES[key]

@@ -10,9 +10,11 @@ Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; on the CPU each kernel wrapper takes its plain PyTorch
 version. This package imports neither JAX nor the JAX package.
 
-Ported so far: the serving path of ResNet18 + ``gap_only``/``texture_nfp``
-(``serve.Predictor``) with the small-map NFP kernel. See ``ROADMAP.md``
-for what is still to come.
+Ported so far: the serving path (``serve.Predictor``) of ResNet18 ×
+{``gap_only``, ``texture_nfp``} and MobileNetV3-Large × {``gap_only``,
+``texture_nfp``, ``texture_nfp_intermediate``, ``mid_nfp``,
+``multi_stage_nfp``, ``nfp_insert``}, with the small-map and large-map
+NFP kernels. See ``ROADMAP.md`` for what is still to come.
 """
 
 __version__ = "0.1.0"

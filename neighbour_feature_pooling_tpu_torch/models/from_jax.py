@@ -3,14 +3,21 @@
 Turns the JAX package's ``{"params", "batch_stats"}`` tree (numpy arrays)
 into the ``state_dict`` of the equivalent ``TextureModel``, so a model
 trained or initialized in JAX runs here with the same weights. It is the
-inverse of the JAX package's own import (``timm_port.port_resnet`` with
-``import_torch._head_map``):
+inverse of the JAX package's own import (``timm_port.port_resnet`` and
+``timm_port.port_mobilenetv3`` with ``import_torch._head_map``):
 
-* conv kernels HWIO → OIHW, Dense kernels transposed;
+* conv kernels HWIO → OIHW (a depthwise ``(k, k, 1, C)`` becomes
+  ``(C, 1, k, k)``), Dense kernels transposed;
 * BatchNorm ``scale/bias`` → ``weight/bias`` and ``mean/var`` →
   ``running_mean/running_var``, with ``num_batches_tracked`` = 0;
-* flax module names → timm/reference keys (``layer2_0`` → ``layer2.0``,
-  ``downsample_conv``/``downsample_bn`` → ``downsample.0``/``.1``).
+* flax module names → timm/reference keys: ResNet ``layer2_0`` →
+  ``layer2.0``, ``downsample_conv``/``downsample_bn`` →
+  ``downsample.0``/``.1``; MobileNetV3 ``blocks_2_1`` → ``blocks.2.1``,
+  ``blocks_6_0_conv``/``blocks_6_0_bn`` → ``blocks.6.0.conv``/``.bn1``, and
+  inside the stage-0 blocks (timm's DepthwiseSeparableConv) ``bn2`` →
+  ``bn1``, ``conv_pwl`` → ``conv_pw``, ``bn3`` → ``bn2``. Head names
+  (``pool.nfp_proj``, ``nfp_proj``, ``nfp_mid_proj``,
+  ``nfp_insert.nfp_proj.{conv,bn}``) are the same on both sides.
 """
 
 from __future__ import annotations
@@ -36,12 +43,23 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
             yield prefix + (k,), v
 
 
+_RENAMES = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1",
+            "blocks_6_0_conv": "blocks.6.0.conv", "blocks_6_0_bn": "blocks.6.0.bn1"}
+#: MobileNetV3 stage-0 block: the JAX InvertedResidual names → timm's
+#: DepthwiseSeparableConv names (one lookup each; never chained)
+_STAGE0 = {"conv_dw": "conv_dw", "bn2": "bn1", "conv_pwl": "conv_pw", "bn3": "bn2"}
+
+
 def _module_key(path: Tuple[str, ...]) -> str:
     parts = []
-    for p in path:
-        p = re.sub(r"^layer(\d+)_(\d+)$", r"layer\1.\2", p)
-        p = {"downsample_conv": "downsample.0",
-             "downsample_bn": "downsample.1"}.get(p, p)
+    for i, p in enumerate(path):
+        if i and re.fullmatch(r"blocks_0_\d+", path[i - 1]):
+            p = _STAGE0[p]
+        elif p in _RENAMES:
+            p = _RENAMES[p]
+        else:
+            p = re.sub(r"^layer(\d+)_(\d+)$", r"layer\1.\2", p)
+            p = re.sub(r"^blocks_(\d+)_(\d+)$", r"blocks.\1.\2", p)
         parts.append(p)
     return ".".join(parts)
 

@@ -1,29 +1,42 @@
 """Model zoo: backbone × texture-head composition (counterpart of
 ``neighbour_feature_pooling_tpu/models/zoo.py``).
 
-Ported so far: ``resnet18`` × {``gap_only``, ``texture_nfp``}:
+Ported so far: ``resnet18`` × {``gap_only``, ``texture_nfp``} and
+``mobilenetv3`` × {``gap_only``, ``texture_nfp``,
+``texture_nfp_intermediate``, ``mid_nfp``, ``multi_stage_nfp``,
+``nfp_insert``}:
 
-=============  ==========================================
-gap_only       backbone → GAP → fc
-texture_nfp    backbone → NFPPoolingHead → fc
-=============  ==========================================
+========================  ==================================================
+gap_only                  backbone → GAP → fc
+texture_nfp               backbone → NFPPoolingHead → fc
+texture_nfp_intermediate  stem→blocks[0..i] tap → NFPPoolingHead → fc
+mid_nfp                   features tap i → NFP→GAP→Linear(1280);
+                          ⊙ GAP(conv_head(last)) → fc
+multi_stage_nfp           NFP on all 5 taps → concat(B,40) → Linear(1280);
+                          ⊙ GAP(conv_head(last)) → fc
+nfp_insert                blocks[0..i] → NFP map → 1×1 conv/BN/ReLU →
+                          blocks[i+1..] → conv_head → GAP → fc
+========================  ==================================================
 
 Every other (type, variant) of the JAX registry raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item. Submodule names
 give the reference/timm ``state_dict`` keys (``backbone.*``,
-``pool.nfp_proj.*``, ``fc.*``).
+``pool.nfp_proj.*``, ``nfp_proj.*``, ``nfp_mid_proj.*``,
+``nfp_insert.nfp_proj.{conv,bn}.*``, ``fc.*``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..ops import nfp
+from .backbones.mobilenetv3 import BLOCK_OUT_CHANNELS, MobileNetV3Large
 from .backbones.resnet import resnet18
-from .heads import NFPPoolingHead, gap2d
+from .heads import NFPPoolingHead, NFPProject, gap2d
 
 __all__ = ["TextureModel", "get_model", "init_params", "MODEL_VARIANTS",
            "NUM_FTRS", "canonical_model_type"]
@@ -62,7 +75,13 @@ MODEL_VARIANTS: Dict[str, Tuple[str, ...]] = {
     "vittiny": _COMMON_VARIANTS + _LEGACY_GRID,
 }
 
-_PORTED = {"resnet18": ("gap_only", "texture_nfp")}
+_PORTED = {
+    "resnet18": ("gap_only", "texture_nfp"),
+    "mobilenetv3": ("gap_only", "texture_nfp", "texture_nfp_intermediate",
+                    "mid_nfp", "multi_stage_nfp", "nfp_insert"),
+}
+#: mobilenetv3 variants that read conv_head's map
+_MNV3_HEAD_VARIANTS = ("mid_nfp", "multi_stage_nfp", "nfp_insert")
 
 
 def canonical_model_type(model_type: str) -> str:
@@ -78,35 +97,81 @@ def _check_ported(mt: str, variant: str) -> None:
                          f"allowed: {MODEL_VARIANTS[mt]}")
     if variant in _PORTED.get(mt, ()):
         return
-    if mt != "resnet18":
-        item = "Queue 1 item 3 (backbones, with the large-map NFP kernel K2)"
-    else:
+    if mt in _PORTED:
         item = "Queue 1 item 4 (other texture heads and the legacy grid)"
+    else:
+        item = "Queue 1 item 3 (the ResNet50 and ViT-Tiny backbones)"
     raise NotImplementedError(f"{mt}/{variant} is not ported yet: ROADMAP.md {item}")
 
 
 class TextureModel(nn.Module):
     """Backbone × texture-pooling-head classifier: NHWC images in, logits
-    ``(B, num_classes)`` out."""
+    ``(B, num_classes)`` out. The keyword arguments are the JAX
+    ``TextureModel``'s fields of the same names."""
 
     def __init__(self, model_type: str, model_variant: str, num_classes: int,
                  num_input_channels: int = 3, measure: str = "cosine",
-                 nfp_radius: int = 1, stem_s2d: bool = False):
+                 nfp_radius: int = 1, nfp_padding: int = 0,
+                 nfp_insert_idx: int = 1,
+                 nfp_intermediate_layer_idx: Optional[int] = 1,
+                 nfp_mid_layer_idx: int = 1, stem_s2d: bool = False):
         super().__init__()
         mt = canonical_model_type(model_type)
         variant = model_variant.lower()
         _check_ported(mt, variant)
         self.model_type = mt
         self.model_variant = variant
+        self.nfp_insert_idx = nfp_insert_idx
+        self.nfp_intermediate_layer_idx = nfp_intermediate_layer_idx
+        self.nfp_mid_layer_idx = nfp_mid_layer_idx
         feat_dim = NUM_FTRS[mt]
-        self.backbone = resnet18(in_chans=num_input_channels, stem_s2d=stem_s2d)
-        if variant == "texture_nfp":
+        if mt == "resnet18":
+            self.backbone = resnet18(in_chans=num_input_channels, stem_s2d=stem_s2d)
+        elif variant == "texture_nfp_intermediate" and nfp_intermediate_layer_idx is not None:
+            # the flax module stops at the tap, so later stages have no weights
+            self.backbone = MobileNetV3Large(num_input_channels,
+                                             last_block=nfp_intermediate_layer_idx)
+            feat_dim = BLOCK_OUT_CHANNELS[nfp_intermediate_layer_idx]
+        else:
+            self.backbone = MobileNetV3Large(num_input_channels,
+                                             head=variant in _MNV3_HEAD_VARIANTS)
+        if variant in _MNV3_HEAD_VARIANTS:
+            feat_dim = self.backbone.head_features
+        if variant in ("texture_nfp", "texture_nfp_intermediate"):
             self.pool = NFPPoolingHead(feat_dim, nfp_radius, measure)
+        elif variant == "mid_nfp":  # R=1 cosine: 8 values from one tap
+            self.nfp_mid_proj = nn.Linear(8, feat_dim)
+        elif variant == "multi_stage_nfp":  # 8 values from each of 5 taps
+            self.nfp_proj = nn.Linear(40, feat_dim)
+        elif variant == "nfp_insert":
+            self.nfp_insert = NFPProject(BLOCK_OUT_CHANNELS[nfp_insert_idx],
+                                         nfp_radius, measure, padding=nfp_padding)
         self.fc = nn.Linear(feat_dim, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        v = self.model_variant
+        if v == "texture_nfp_intermediate":
+            return self.fc(self.pool(self.backbone(
+                x, stop_after_block=self.nfp_intermediate_layer_idx)))
+        if v in ("mid_nfp", "multi_stage_nfp"):
+            # both hard-code R=1, cosine, padding 1, whatever `measure` says
+            feats, head = self.backbone(x, mode="features+head")
+            if v == "mid_nfp":
+                taps = [feats[self.nfp_mid_layer_idx]]
+                proj = self.nfp_mid_proj
+            else:
+                taps, proj = feats, self.nfp_proj
+            sims = torch.cat([nfp(f, 1, "cosine", padding=1, fuse_gap=True)
+                              for f in taps], dim=1)
+            return self.fc(gap2d(head) * proj(sims))
+        if v == "nfp_insert":
+            # the same backbone twice, sharing its parameters
+            fmap = self.backbone(x, stop_after_block=self.nfp_insert_idx)
+            fmap = self.backbone(self.nfp_insert(fmap), mode="head",
+                                 start_at_block=self.nfp_insert_idx + 1)
+            return self.fc(gap2d(fmap))
         fmap = self.backbone(x)
-        if self.model_variant == "gap_only":
+        if v == "gap_only":
             return self.fc(gap2d(fmap))
         return self.fc(self.pool(fmap))
 

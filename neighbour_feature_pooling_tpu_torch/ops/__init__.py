@@ -1,8 +1,8 @@
 """Texture pooling ops (counterpart of ``neighbour_feature_pooling_tpu.ops``).
 
 Ported so far: ``nfp`` — Neighborhood Feature Pooling, with the small-map
-CUDA kernel (``nfp_cuda.py``) and its plain PyTorch version
-(``neighborhood.nfp_reference``).
+and large-map CUDA kernels (``nfp_cuda.py``) and their plain PyTorch
+version (``neighborhood.nfp_reference``).
 """
 
 from .measures import (  # noqa: F401
@@ -10,8 +10,10 @@ from .measures import (  # noqa: F401
     MEASURE_NAMES,
     Measure,
     MeasureConfig,
+    SEPARABLE,
     canonical_measure_name,
     get_measure,
+    get_separable,
 )
 from .neighborhood import (  # noqa: F401
     neighbor_offsets,
@@ -20,4 +22,4 @@ from .neighborhood import (  # noqa: F401
     num_neighbors,
     pad_spatial,
 )
-from .nfp_cuda import nfp, nfp_small_cuda  # noqa: F401
+from .nfp_cuda import nfp, nfp_large_cuda, nfp_small_cuda  # noqa: F401

@@ -5,7 +5,7 @@ measure compares a *center* feature vector with a *neighbor* feature vector
 along the channel dimension and reduces it to one scalar per spatial
 position and neighbor. Each function below is written term for term from
 the JAX one, so the plain NFP version (``neighborhood.nfp_reference``) and
-the CUDA kernel (``csrc/nfp_small.cu``) compute the same arithmetic.
+the CUDA kernels (``csrc/nfp_measures.cuh``) compute the same arithmetic.
 
 Conventions: *distance* measures (``norm``, ``rmse``, ``emd``,
 ``canberra``, ``hellinger``, ``chisquared1/2``, ``jeffrey``,
@@ -32,6 +32,9 @@ __all__ = [
     "get_measure",
     "canonical_measure_name",
     "MEASURE_NAMES",
+    "SeparableMeasure",
+    "SEPARABLE",
+    "get_separable",
 ]
 
 
@@ -246,6 +249,117 @@ MEASURE_NAMES = [
     "canberra", "hellinger", "chisquared1", "chisquared2", "gfc",
     "pearson", "jeffrey", "squaredchord", "smith", "sharpened_cosine", "scs",
 ]
+
+
+# --------------------------------------------------------------------------
+# Separable (channel-accumulator) forms.
+#
+# Almost every measure is Σ_c f(center_c, neighbor_c) over channels followed
+# by a scalar tail. ``map_terms`` returns the per-channel addends and
+# ``finalize_sums`` turns the accumulated sums into the measure value
+# (the same math as ``pairwise``, reassociated only). This table is what the
+# JAX dispatch reads to send a large map to its channels-first kernel, and
+# it is the written source of the large-map CUDA kernel's per-channel terms
+# and tails (``csrc/nfp_measures.cuh``).
+#
+# Not separable: ``pearson`` (centred two-pass form), ``mahalanobis``
+# (per-sample statistics). ``attention`` = separable ``dot`` + a softmax
+# over the neighbours that runs outside the kernel.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SeparableMeasure:
+    """Channel-accumulated form: value = finalize_sums(Σ_c map_terms(c, n))."""
+
+    n_acc: int
+    map_terms: Callable  # (c, n, cfg) -> tuple of n_acc per-channel terms
+    finalize_sums: Callable  # (sums tuple, num_channels, cfg) -> value
+
+
+def _sep_norm_terms(c, n, cfg):
+    d = torch.abs(c - n)
+    if cfg.p == 1:
+        return (d,)
+    return (d * d,) if cfg.p == 2 else (d ** cfg.p,)
+
+
+def _sep_norm_fin(s, nc, cfg):
+    if cfg.p == 1:
+        return s[0]
+    return safe_sqrt(s[0]) if cfg.p == 2 else s[0] ** (1.0 / cfg.p)
+
+
+def _sep_dot_terms(c, n, cfg):
+    return (c * n,)
+
+
+def _sep_moments(c, n, cfg):
+    return (c * n, c * c, n * n)
+
+
+def _sep_identity(s, nc, cfg):
+    return s[0]
+
+
+def _sep_sqrt_abs(c, n, cfg):
+    return (torch.sqrt(torch.abs(c) + cfg.eps) - torch.sqrt(torch.abs(n) + cfg.eps)) ** 2
+
+
+def _sep_jeffrey_terms(c, n, cfg):
+    a = torch.abs(c) + cfg.eps
+    b = torch.abs(n) + cfg.eps
+    return ((a - b) * torch.log(a / b),)
+
+
+SEPARABLE: Dict[str, SeparableMeasure] = {
+    "norm": SeparableMeasure(1, _sep_norm_terms, _sep_norm_fin),
+    "cosine": SeparableMeasure(
+        3, _sep_moments,
+        lambda s, nc, cfg: s[0] / (torch.clamp(safe_sqrt(s[1]), min=cfg.eps)
+                                   * torch.clamp(safe_sqrt(s[2]), min=cfg.eps))),
+    "dot": SeparableMeasure(1, _sep_dot_terms, _sep_identity),
+    "attention": SeparableMeasure(1, _sep_dot_terms, _sep_identity),
+    "rmse": SeparableMeasure(1, lambda c, n, cfg: ((c - n) ** 2,),
+                             lambda s, nc, cfg: safe_sqrt(s[0] / nc)),
+    "geman": SeparableMeasure(
+        1, lambda c, n, cfg: (((c - n) ** 2) / ((c - n) ** 2 + cfg.eps),),
+        lambda s, nc, cfg: s[0] / nc),
+    "emd": SeparableMeasure(1, lambda c, n, cfg: (torch.abs(c - n),), _sep_identity),
+    "canberra": SeparableMeasure(
+        1, lambda c, n, cfg: (torch.abs(c - n)
+                              / (torch.abs(c) + torch.abs(n) + cfg.eps),),
+        _sep_identity),
+    "hellinger": SeparableMeasure(
+        1, lambda c, n, cfg: (_sep_sqrt_abs(c, n, cfg),),
+        lambda s, nc, cfg: safe_sqrt(0.5 * s[0])),
+    "chisquared1": SeparableMeasure(
+        1, lambda c, n, cfg: ((c - n) ** 2
+                              / (torch.abs(c) + torch.abs(n) + cfg.eps),),
+        _sep_identity),
+    "chisquared2": SeparableMeasure(
+        1, lambda c, n, cfg: ((c - n) ** 2 / (torch.abs(c) + cfg.eps),),
+        _sep_identity),
+    "gfc": SeparableMeasure(
+        3, _sep_moments,
+        lambda s, nc, cfg: s[0] / (safe_sqrt(s[1]) * safe_sqrt(s[2]) + cfg.eps)),
+    "jeffrey": SeparableMeasure(1, _sep_jeffrey_terms, _sep_identity),
+    "squaredchord": SeparableMeasure(
+        1, lambda c, n, cfg: (_sep_sqrt_abs(c, n, cfg),), _sep_identity),
+    "smith": SeparableMeasure(
+        3, lambda c, n, cfg: (torch.minimum(torch.abs(c), torch.abs(n)),
+                              torch.abs(c), torch.abs(n)),
+        lambda s, nc, cfg: 1.0 - s[0] / (torch.minimum(s[1], s[2]) + cfg.eps)),
+    "scs": SeparableMeasure(
+        3, _sep_moments,
+        lambda s, nc, cfg: _scs_from_cos(
+            s[0] / ((safe_sqrt(s[1]) + cfg.q_scs)
+                    * (safe_sqrt(s[2]) + cfg.q_scs)), cfg.p)),
+}
+
+
+def get_separable(name: str) -> Optional[SeparableMeasure]:
+    return SEPARABLE.get(canonical_measure_name(name))
 
 
 def canonical_measure_name(name: str) -> str:

@@ -7,8 +7,8 @@ k×k−1 neighbors (k = 2·radius+1) under a selectable measure, producing a
 slices of one padded NHWC tensor; the (B, H, W, N, C) neighbor tensor is
 never materialized.
 
-This is the semantics oracle: the CUDA kernel (``csrc/nfp_small.cu``) is
-held against it, and the CPU path runs it.
+This is the semantics oracle: the CUDA kernels (``csrc/nfp_small.cu``,
+``csrc/nfp_large.cu``) are held against it, and the CPU path runs it.
 
 * neighbor ordering: row-major kernel taps minus the center;
 * padding: applied symmetrically before extraction, default ``reflect``,
@@ -63,8 +63,8 @@ def pad_index(i: int, n: int, padding_mode: str) -> int:
     ``reflect`` is ``jnp.pad(mode="reflect")``: a reflection with period
     2(n−1) that keeps reflecting when the pad exceeds the axis, and repeats
     a length-1 axis (``F.pad`` raises on both). ``replicate`` clamps,
-    ``circular`` wraps, ``zeros`` gives -1. ``csrc/nfp_small.cu`` applies the
-    same rule in-kernel.
+    ``circular`` wraps, ``zeros`` gives -1. ``csrc/nfp_measures.cuh``
+    applies the same rule in the kernels' loads.
     """
     if 0 <= i < n:
         return i

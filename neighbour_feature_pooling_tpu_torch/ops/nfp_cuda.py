@@ -1,21 +1,26 @@
-"""Neighborhood Feature Pooling on the GPU: the CUDA kernel and the public op.
+"""Neighborhood Feature Pooling on the GPU: the CUDA kernels and the public op.
 
 Counterpart of ``neighbour_feature_pooling_tpu/ops/nfp_pallas.py``.
 
-* ``nfp_small_cuda`` wraps ``csrc/nfp_small.cu``, the Hopper port of the
-  small-map TPU kernel ``_nfp_kernel_unrolled`` (maps of at most 256 output
-  positions, stride 1, every stat-free measure, optional fused GAP). On a
-  CPU tensor it runs the plain version, ``neighborhood.nfp_reference``.
-* ``nfp`` dispatches as the JAX ``nfp`` does (``_forward_value``): a
-  kernel-eligible CUDA input goes to the kernel; a configuration the JAX
-  package sends to its XLA oracle goes to ``nfp_reference`` on either
-  device; a CUDA input the JAX package sends to its large-map kernel raises
-  until that kernel is ported; a CPU input runs ``nfp_reference``.
+* ``nfp_small_cuda`` wraps ``csrc/nfp_small.cu`` (K1), the Hopper port of
+  the small-map TPU kernel ``_nfp_kernel_unrolled`` (maps of at most 256
+  output positions, stride 1, every stat-free measure, optional fused GAP).
+* ``nfp_large_cuda`` wraps ``csrc/nfp_large.cu`` (K2), the Hopper port of
+  the large-map TPU kernel ``_nfp_kernel_chw`` (any map size, stride 1, the
+  separable measures of ``measures.SEPARABLE``, optional fused GAP).
+* On a CPU tensor each wrapper runs the plain version,
+  ``neighborhood.nfp_reference``; on a CUDA tensor it launches its kernel
+  or raises.
+* ``nfp`` dispatches as the JAX ``nfp`` does (``_forward_value``): a CUDA
+  input goes to K1 or K2 where the JAX package sends it to the matching
+  Pallas kernel; a configuration the JAX package sends to its XLA oracle
+  goes to ``nfp_reference`` on either device; a CPU input runs
+  ``nfp_reference``.
 
-There is no fallback: a CUDA input the kernel should take either launches
-it or raises. Gradients through the kernel come with the training slice
-(an ``autograd.Function`` whose backward differentiates the plain version),
-so a CUDA input that requires grad raises for now.
+There is no fallback: a CUDA input a kernel should take either launches it
+or raises. Gradients through the kernels come with the training slice (an
+``autograd.Function`` whose backward differentiates the plain version), so
+a CUDA input that requires grad raises for now.
 """
 
 from __future__ import annotations
@@ -26,10 +31,10 @@ import functools
 import torch
 
 from . import _build
-from .measures import MEASURES, canonical_measure_name, get_measure
+from .measures import get_measure, get_separable
 from .neighborhood import PAD_MODES, nfp_output_size, nfp_reference, num_neighbors
 
-__all__ = ["nfp", "nfp_small_cuda", "kernel_supported"]
+__all__ = ["nfp", "nfp_small_cuda", "nfp_large_cuda", "kernel_supported"]
 
 #: dispatch thresholds of the JAX ``nfp`` (nfp_pallas.py:433-439), kept so
 #: both packages route every configuration the same way; they were chosen
@@ -37,11 +42,8 @@ __all__ = ["nfp", "nfp_small_cuda", "kernel_supported"]
 _MAX_POSITIONS = 256
 _CHW_MAX_CHANNELS = 48
 _CHW_GAP_MAX_CHANNELS = 64
-#: measures with a channel-accumulable form (measures.py ``SEPARABLE``):
-#: all stat-free measures but the centred two-pass ``pearson``
-_SEPARABLE = frozenset(MEASURES) - {"pearson", "mahalanobis"}
 
-# keep in sync with the enums in csrc/nfp_small.cu
+# keep in sync with the enums in csrc/nfp_measures.cuh
 _MEASURE_IDS = {name: i for i, name in enumerate((
     "norm", "cosine", "dot", "rmse", "geman", "emd", "canberra", "hellinger",
     "chisquared1", "chisquared2", "gfc", "pearson", "jeffrey", "squaredchord",
@@ -55,12 +57,88 @@ def kernel_supported(measure: str, stride: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _nfp_small_forward():
-    fn = _build.load_library("nfp_small").nfp_small_forward
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 16
+def _library_fn(name: str):
+    """``<name>_forward`` of ``csrc/<name>.cu`` with its ctypes signature."""
+    lib = _build.load_library(name)
+    fn = getattr(lib, f"{name}_forward")
+    n_ptrs = 3 if name == "nfp_large" else 2  # K2 also takes its partials
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 16
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _large_tile_positions() -> int:
+    fn = _build.load_library("nfp_large").nfp_large_tile_positions
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def _launch(name, x, radius, m, *, similarity, p, eps, q_scs, padding,
+            dilation, padding_mode, fuse_gap, max_positions=None):
+    """Check a CUDA input and launch ``csrc/<name>.cu`` on it.
+
+    Returns the kernel's output in the input dtype. Raises on anything the
+    kernel does not take; never falls back to the plain version."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}_cuda takes a CUDA or CPU tensor, got {x.device}")
+    if x.ndim != 4:
+        raise ValueError(f"nfp expects a 4-D NHWC map, got shape {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}_cuda takes float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}_cuda needs a contiguous NHWC tensor")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "the NFP kernels have no backward yet (training slice, ROADMAP.md "
+            "Queue 1 item 2); run under torch.no_grad()/inference_mode()")
+    if padding_mode not in PAD_MODES:
+        raise ValueError(f"Unsupported padding_mode {padding_mode!r}; "
+                         f"one of {sorted(PAD_MODES)}")
+    b, h, w, c = x.shape
+    h_out = nfp_output_size(h, radius, 1, padding, dilation)
+    w_out = nfp_output_size(w, radius, 1, padding, dilation)
+    if h_out < 1 or w_out < 1:
+        raise ValueError(
+            f"NFP output size {h_out}x{w_out} invalid for input {h}x{w}, "
+            f"R={radius}, padding={padding}, dilation={dilation}")
+    if max_positions is not None and h_out * w_out > max_positions:
+        raise ValueError(f"{name}_cuda takes maps of at most {max_positions} "
+                         f"output positions, got {h_out}x{w_out}")
+    n = num_neighbors(radius)
+    out = torch.empty((b, n) if fuse_gap else (b, h_out, w_out, n),
+                      dtype=torch.float32, device=x.device)
+    if b == 0:  # an empty grid is not a valid launch
+        return out.to(x.dtype)
+    ptrs = [x.data_ptr(), out.data_ptr()]
+    if name == "nfp_large":
+        n_tiles = -(-h_out * w_out // _large_tile_positions())
+        partial = (torch.empty((b, n_tiles, n), dtype=torch.float32, device=x.device)
+                   if fuse_gap else None)
+        ptrs.append(None if partial is None else partial.data_ptr())
+    vec_width = 4 if x.dtype == torch.float32 else 8  # elements per 16 bytes
+    vec = int(c % vec_width == 0 and x.data_ptr() % 16 == 0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _library_fn(name)(
+            *ptrs, int(x.dtype == torch.bfloat16),
+            b, h, w, c, h_out, w_out, radius, dilation, padding,
+            PAD_MODES.index(padding_mode), _MEASURE_IDS[m.name],
+            _FINALIZE_IDS[m.finalize_kind], int(similarity), int(fuse_gap),
+            vec, p, eps, q_scs, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
+    return out.to(x.dtype)
+
+
+def _attention(wrapper, x, radius, m, *, similarity, fuse_gap, **kw):
+    """``attention``: the ``dot`` kernel, a softmax over the neighbours,
+    then the pooling, as ``nfp_pallas`` does (softmax-of-mean is not
+    mean-of-softmax, so the map is never fused)."""
+    raw = wrapper(x, radius, "dot", similarity=True, fuse_gap=False, **kw)
+    out = m.finalize(torch.softmax(raw, dim=-1), similarity)
+    return torch.mean(out, dim=(1, 2)) if fuse_gap else out
 
 
 def nfp_small_cuda(
@@ -77,7 +155,7 @@ def nfp_small_cuda(
     padding_mode: str = "reflect",
     fuse_gap: bool = False,
 ) -> torch.Tensor:
-    """Small-map NFP(+GAP) on an NHWC map, stride 1.
+    """Small-map NFP(+GAP) on an NHWC map, stride 1 (K1, ``csrc/nfp_small.cu``).
 
     Returns ``(B, N)`` with ``fuse_gap``, else ``(B, H', W', N)``, in the
     input dtype. A CUDA input must be a contiguous fp32/bf16 NHWC tensor
@@ -86,81 +164,83 @@ def nfp_small_cuda(
     neighbours, then the pooling, as ``nfp_pallas`` does.
     ``nfp_small_cuda.launches`` counts kernel launches.
     """
+    kw = dict(p=p, eps=eps, q_scs=q_scs, padding=padding, dilation=dilation,
+              padding_mode=padding_mode)
     if x.device.type == "cpu":
-        return nfp_reference(
-            x, radius, measure, similarity=similarity, p=p, eps=eps,
-            q_scs=q_scs, padding=padding, dilation=dilation,
-            padding_mode=padding_mode, fuse_gap=fuse_gap)
+        return nfp_reference(x, radius, measure, similarity=similarity,
+                             fuse_gap=fuse_gap, **kw)
     m = get_measure(measure)
     if m.needs_softmax_over_neighbors:
-        raw = nfp_small_cuda(x, radius, "dot", similarity=True, p=p, eps=eps,
-                             q_scs=q_scs, padding=padding, dilation=dilation,
-                             padding_mode=padding_mode, fuse_gap=False)
-        out = m.finalize(torch.softmax(raw, dim=-1), similarity)
-        return torch.mean(out, dim=(1, 2)) if fuse_gap else out
-
-    if x.device.type != "cuda":
-        raise ValueError(f"nfp_small_cuda takes a CUDA or CPU tensor, got {x.device}")
-    if x.ndim != 4:
-        raise ValueError(f"nfp expects a 4-D NHWC map, got shape {tuple(x.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"nfp_small_cuda takes float32 or bfloat16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("nfp_small_cuda needs a contiguous NHWC tensor")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "the NFP kernel has no backward yet (training slice, ROADMAP.md "
-            "Queue 1 item 2); run under torch.no_grad()/inference_mode()")
+        return _attention(nfp_small_cuda, x, radius, m, similarity=similarity,
+                          fuse_gap=fuse_gap, **kw)
     if m.name not in _MEASURE_IDS:
         raise ValueError(f"the NFP kernel does not take measure {m.name!r}")
-    if padding_mode not in PAD_MODES:
-        raise ValueError(f"Unsupported padding_mode {padding_mode!r}; "
-                         f"one of {sorted(PAD_MODES)}")
-    b, h, w, c = x.shape
-    h_out = nfp_output_size(h, radius, 1, padding, dilation)
-    w_out = nfp_output_size(w, radius, 1, padding, dilation)
-    if h_out < 1 or w_out < 1:
-        raise ValueError(
-            f"NFP output size {h_out}x{w_out} invalid for input {h}x{w}, "
-            f"R={radius}, padding={padding}, dilation={dilation}")
-    if h_out * w_out > _MAX_POSITIONS:
-        raise ValueError(f"nfp_small_cuda takes maps of at most {_MAX_POSITIONS} "
-                         f"output positions, got {h_out}x{w_out}")
-    n = num_neighbors(radius)
-    out = torch.empty((b, n) if fuse_gap else (b, h_out, w_out, n),
-                      dtype=torch.float32, device=x.device)
-    if b == 0:  # an empty grid is not a valid launch
-        return out.to(x.dtype)
-    vec_width = 4 if x.dtype == torch.float32 else 8  # elements per 16 bytes
-    vec = int(c % vec_width == 0 and x.data_ptr() % 16 == 0)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _nfp_small_forward()(
-            x.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-            b, h, w, c, h_out, w_out, radius, dilation, padding,
-            PAD_MODES.index(padding_mode), _MEASURE_IDS[m.name],
-            _FINALIZE_IDS[m.finalize_kind], int(similarity), int(fuse_gap),
-            vec, p, eps, q_scs, stream)
-    if rc != 0:
-        raise RuntimeError(f"nfp_small kernel launch failed: cudaError_t {rc}")
+    out = _launch("nfp_small", x, radius, m, similarity=similarity,
+                  fuse_gap=fuse_gap, max_positions=_MAX_POSITIONS, **kw)
     nfp_small_cuda.launches += 1
-    return out.to(x.dtype)
+    return out
 
 
 nfp_small_cuda.launches = 0
 
 
+def nfp_large_cuda(
+    x: torch.Tensor,
+    radius: int = 1,
+    measure: str = "cosine",
+    *,
+    similarity: bool = True,
+    p: float = 1.0,
+    eps: float = 1e-6,
+    q_scs: float = 1e-6,
+    padding: int = 0,
+    dilation: int = 1,
+    padding_mode: str = "reflect",
+    fuse_gap: bool = False,
+) -> torch.Tensor:
+    """Large-map NFP(+GAP) on an NHWC map, stride 1, for the separable
+    measures (K2, ``csrc/nfp_large.cu``).
+
+    Returns ``(B, N)`` with ``fuse_gap``, else ``(B, H', W', N)``, in the
+    input dtype. A CUDA input must be a contiguous fp32/bf16 NHWC tensor;
+    any map size and channel count is taken (the C <= 48/64 caps are the
+    dispatch policy of ``nfp``, not limits of the kernel). A measure
+    without a separable form (``pearson``, ``mahalanobis``) raises.
+    ``attention`` runs the ``dot`` kernel, then a softmax over the
+    neighbours, then the pooling. ``nfp_large_cuda.launches`` counts
+    kernel launches (the fused GAP's reduction pass belongs to its launch).
+    """
+    kw = dict(p=p, eps=eps, q_scs=q_scs, padding=padding, dilation=dilation,
+              padding_mode=padding_mode)
+    if x.device.type == "cpu":
+        return nfp_reference(x, radius, measure, similarity=similarity,
+                             fuse_gap=fuse_gap, **kw)
+    m = get_measure(measure)
+    if m.needs_softmax_over_neighbors:
+        return _attention(nfp_large_cuda, x, radius, m, similarity=similarity,
+                          fuse_gap=fuse_gap, **kw)
+    if get_separable(m.name) is None:
+        raise ValueError(f"nfp_large_cuda takes the separable measures, not {m.name!r}")
+    out = _launch("nfp_large", x, radius, m, similarity=similarity,
+                  fuse_gap=fuse_gap, **kw)
+    nfp_large_cuda.launches += 1
+    return out
+
+
+nfp_large_cuda.launches = 0
+
+
 def _route(shape, radius, measure, stride, padding, dilation, data_format,
            fuse_gap) -> str:
     """Where the JAX ``nfp`` sends a configuration (``_forward_value``):
-    ``"kernel"`` (the small-map kernel), ``"k2"`` (the large-map
-    channels-first kernel) or ``"reference"`` (the plain version)."""
+    ``"kernel"`` (the small-map kernel K1), ``"k2"`` (the large-map kernel)
+    or ``"reference"`` (the plain version)."""
     h_axis, w_axis, c_axis = (2, 3, 1) if data_format == "NCHW" else (1, 2, 3)
     h_out = nfp_output_size(shape[h_axis], radius, stride, padding, dilation)
     w_out = nfp_output_size(shape[w_axis], radius, stride, padding, dilation)
     small_map = h_out * w_out <= _MAX_POSITIONS
     chw_cap = _CHW_GAP_MAX_CHANNELS if fuse_gap else _CHW_MAX_CHANNELS
-    chw_eligible = (canonical_measure_name(measure) in _SEPARABLE
+    chw_eligible = (get_separable(measure) is not None
                     and shape[c_axis] <= chw_cap)
     if not (kernel_supported(measure, stride) and (small_map or chw_eligible)):
         return "reference"
@@ -195,12 +275,9 @@ def nfp(
                    data_format, fuse_gap)
     if x.device.type != "cuda" or route == "reference":
         return nfp_reference(x, radius, measure, **ref_kw)
-    if route == "k2":
-        raise NotImplementedError(
-            "K2 (nfp_pallas.py::_nfp_kernel_chw, the large-map NFP kernel) is "
-            "not yet ported: ROADMAP.md Queue 2")
     xh = x.permute(0, 2, 3, 1) if data_format == "NCHW" else x
-    out = nfp_small_cuda(
+    kernel = nfp_large_cuda if route == "k2" else nfp_small_cuda
+    out = kernel(
         xh.contiguous(), radius, measure, similarity=similarity, p=p, eps=eps,
         q_scs=q_scs, padding=padding, dilation=dilation,
         padding_mode=padding_mode, fuse_gap=fuse_gap)

@@ -5,7 +5,11 @@ serve.py``).
 eval transform, requests chunked and padded to a fixed batch size, a forward
 on the device under ``torch.inference_mode()``, softmax probabilities and
 argmax labels out. It runs on ``device="cuda"`` unless the caller passes
-``device="cpu"``; asking for CUDA where there is none raises.
+``device="cpu"``; asking for CUDA where there is none raises. It serves
+whatever ``models.get_model`` builds: ResNet18 × {``gap_only``,
+``texture_nfp``} and MobileNetV3-Large × {``gap_only``, ``texture_nfp``,
+``texture_nfp_intermediate``, ``mid_nfp``, ``multi_stage_nfp``,
+``nfp_insert``}, whose options reach the model through ``model_kwargs``.
 
 Not ported yet: reference-checkpoint import, data-parallel serving, export
 and the HTTP server (ROADMAP.md Queue 1 item 5), and int8 (item 6).

@@ -116,7 +116,9 @@ def test_state_dict_round_trips_through_the_jax_importer():
 def test_unported_variants_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_model("resnet18", "texture_fractal", NUM_CLASSES)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
         get_model("resnet50", "texture_nfp", NUM_CLASSES)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+        get_model("mobilenetv3", "gap_nfp_conv_mlp_concat", NUM_CLASSES)
     with pytest.raises(ValueError, match="Unknown model_variant"):
         get_model("resnet18", "no_such_head", NUM_CLASSES)

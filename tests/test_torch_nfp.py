@@ -20,9 +20,14 @@ import pytest
 import torch
 
 from neighbour_feature_pooling_tpu import ops as jops
+from neighbour_feature_pooling_tpu.ops.measures import SEPARABLE as JAX_SEPARABLE
+from neighbour_feature_pooling_tpu.ops.measures import MeasureConfig as JaxMeasureConfig
 from neighbour_feature_pooling_tpu_torch.ops import (
     MEASURE_NAMES,
+    SEPARABLE,
+    MeasureConfig,
     nfp,
+    nfp_large_cuda,
     nfp_reference,
     nfp_small_cuda,
     pad_spatial,
@@ -145,6 +150,11 @@ def test_routes_follow_jax_dispatch():
     assert route((2, 56, 56, 64), fuse_gap=False) == "reference"  # map: C <= 48
     assert route((2, 56, 56, 16), measure="pearson") == "reference"
     assert route((2, 56, 56, 128)) == "reference"
+    # the MobileNetV3 taps at 224 px: 112², 56², 28² to K2, 14², 7² to K1
+    assert [route((32, s, s, c)) for s, c in ((112, 16), (56, 24), (28, 40),
+                                               (14, 112), (7, 960))] == [
+        "k2", "k2", "k2", "kernel", "kernel"]
+    assert route((32, 56, 56, 24), fuse_gap=False) == "k2"  # nfp_insert
 
 
 def test_wrapper_takes_plain_version_on_cpu_and_never_launches():
@@ -158,6 +168,94 @@ def test_wrapper_takes_plain_version_on_cpu_and_never_launches():
     assert nfp_small_cuda.launches == before
 
 
+@pytest.mark.parametrize("fuse_gap", [True, False])
+def test_large_wrapper_takes_plain_version_on_cpu_and_never_launches(fuse_gap):
+    before = nfp_large_cuda.launches, nfp_small_cuda.launches
+    x = torch.from_numpy(_x((2, 20, 20, 24)))
+    for measure in ("cosine", "attention", "norm", "pearson"):
+        kw = dict(padding=1, fuse_gap=fuse_gap)
+        got = nfp_large_cuda(x, 1, measure, **kw)
+        torch.testing.assert_close(got, nfp_reference(x, 1, measure, **kw), rtol=0, atol=0)
+        nfp(x, 1, measure, **kw)
+    assert (nfp_large_cuda.launches, nfp_small_cuda.launches) == before
+
+
+# K2: separable measures on maps above 256 positions, through the JAX
+# public nfp, which runs the channels-first Pallas kernel in interpret mode
+# (the per-channel "fori" body at C <= 48, the whole-C "vec" body for
+# fused maps at 48 < C <= 64)
+SEPARABLE_NAMES = sorted(JAX_SEPARABLE)
+K2_CASES = ([(m, (2, 20, 20, 24), True) for m in SEPARABLE_NAMES]
+            + [(m, (2, 20, 20, 24), False) for m in SEPARABLE_NAMES]
+            + [(m, (2, 20, 20, 56), True) for m in SEPARABLE_NAMES])
+
+
+@pytest.mark.parametrize("measure,shape,fuse_gap", K2_CASES)
+def test_k2_route_matches_jax_kernel(measure, shape, fuse_gap):
+    similarity = SEPARABLE_NAMES.index(measure) % 2 == 0
+    kw = dict(similarity=similarity, padding=1, fuse_gap=fuse_gap,
+              p=2.0 if measure in ("norm", "scs") else 1.0)
+    assert _route(shape, 1, measure, 1, 1, 1, "NHWC", fuse_gap) == "k2"
+    x = _x(shape, seed=3)
+    want = np.asarray(jops.nfp(x, 1, measure, **kw))
+    got = _port(x, 1, measure, **kw)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+K2_GEOMETRY = {
+    "nchw_map": ((2, 24, 20, 20), dict(radius=1, padding=1, data_format="NCHW")),
+    "nchw_gap": ((2, 24, 20, 20), dict(radius=1, padding=1, data_format="NCHW",
+                                       fuse_gap=True)),
+    "zeros_pad": ((2, 20, 20, 24), dict(radius=1, padding=1, padding_mode="zeros")),
+    "replicate_gap": ((2, 20, 20, 24), dict(radius=1, padding=1, fuse_gap=True,
+                                            padding_mode="replicate")),
+    "circular_odd": ((2, 21, 17, 24), dict(radius=1, padding=1, padding_mode="circular")),
+    "r2_dilation2": ((2, 24, 24, 24), dict(radius=2, padding=4, dilation=2)),
+    "r2_dilation2_gap": ((2, 24, 24, 24), dict(radius=2, padding=4, dilation=2,
+                                               fuse_gap=True)),
+    "insert_valid": ((2, 20, 20, 24), dict(radius=1, padding=0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K2_GEOMETRY))
+def test_k2_geometry_matches_jax(case):
+    shape, kw = K2_GEOMETRY[case]
+    kw = dict(kw)
+    radius = kw.pop("radius")
+    fmt = kw.get("data_format", "NHWC")
+    assert _route(shape, radius, "cosine", 1, kw["padding"], kw.get("dilation", 1),
+                  fmt, kw.get("fuse_gap", False)) == "k2"
+    x = _x(shape, seed=4)
+    want = np.asarray(jops.nfp(x, radius, "cosine", **kw))
+    got = _port(x, radius, "cosine", **kw)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("name", SEPARABLE_NAMES)
+def test_separable_table_matches_jax(name):
+    """The ported SEPARABLE: same names, accumulator counts, per-channel
+    terms and tails as the JAX table on the same numpy inputs."""
+    assert sorted(SEPARABLE) == SEPARABLE_NAMES
+    rng = np.random.default_rng(5)
+    c, n = rng.standard_normal((2, 3, 24)).astype(np.float32)
+    for p in (1.0, 2.0, 3.0):
+        jcfg, cfg = JaxMeasureConfig(p=p), MeasureConfig(p=p)
+        jsep, sep = JAX_SEPARABLE[name], SEPARABLE[name]
+        assert sep.n_acc == jsep.n_acc
+        jterms = [np.array(t) for t in jsep.map_terms(c, n, jcfg)]
+        terms = [t.numpy() for t in sep.map_terms(torch.from_numpy(c), torch.from_numpy(n), cfg)]
+        assert len(terms) == len(jterms) == sep.n_acc
+        for got, want in zip(terms, jterms):
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        jsums = tuple(t.sum(-1) for t in jterms)
+        sums = tuple(torch.from_numpy(t).sum(-1) for t in jterms)
+        np.testing.assert_allclose(sep.finalize_sums(sums, 24, cfg).numpy(),
+                                   np.asarray(jsep.finalize_sums(jsums, 24, jcfg)),
+                                   rtol=1e-6, atol=1e-6)
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
@@ -165,6 +263,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import neighbour_feature_pooling_tpu_torch.serve\n"
         "import neighbour_feature_pooling_tpu_torch.ops\n"
         "import neighbour_feature_pooling_tpu_torch.models.from_jax\n"
+        "import neighbour_feature_pooling_tpu_torch.models.backbones.mobilenetv3\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'neighbour_feature_pooling_tpu'"
         " or m.startswith('neighbour_feature_pooling_tpu.'))\n"

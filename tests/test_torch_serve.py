@@ -1,9 +1,10 @@
 """The PyTorch port's ``Predictor`` against the JAX package's, on the CPU.
 
-The JAX ``Predictor`` (ResNet18 + texture_nfp, 5 classes, batch 4, 64 px)
-builds its weights from ``PRNGKey(0)``; ``state_dict_from_flax`` turns them
-into a ``torch.save``d state_dict that the port's ``Predictor(device="cpu")``
-serves. Both answer the same raw images. Tolerance: the repo's fp32 bar,
+The JAX ``Predictor`` (ResNet18 + texture_nfp, 5 classes, batch 4, 64 px;
+and MobileNetV3 + multi_stage_nfp at 64 px, whose 32² tap takes the
+large-map kernel's route) builds its weights from ``PRNGKey(0)``;
+``state_dict_from_flax`` turns them into a ``torch.save``d state_dict that
+the port's ``Predictor(device="cpu")`` serves. Both answer the same raw images. Tolerance: the repo's fp32 bar,
 1e-4 on the probabilities; labels equal.
 """
 
@@ -47,6 +48,24 @@ def test_predict_matches_jax(predictors, n):
                                rtol=1e-4, atol=1e-4)
     if n:
         np.testing.assert_allclose(got["probabilities"].sum(-1), 1.0, atol=1e-5)
+
+
+MNV3_KW = dict(KW, model_type="mobilenetv3", model_variant="multi_stage_nfp")
+
+
+def test_mobilenetv3_predict_matches_jax(tmp_path):
+    """Two batches (the second padded) through MobileNetV3 +
+    multi_stage_nfp."""
+    jax_pred = JaxPredictor(**MNV3_KW)
+    path = str(tmp_path / "multi_stage_nfp.pt")
+    torch.save(state_dict_from_flax(jax_pred._variables), path)
+    pred = Predictor(**MNV3_KW, checkpoint=path, device="cpu")
+    images = _images(6, seed=11)
+    want, got = jax_pred.predict(images), pred.predict(images)
+    assert got["probabilities"].shape == want["probabilities"].shape == (6, 5)
+    np.testing.assert_array_equal(got["label"], want["label"])
+    np.testing.assert_allclose(got["probabilities"], want["probabilities"],
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_preprocess_is_bit_identical(predictors):

@@ -23,7 +23,21 @@ Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
    ones (3 and 2 launches per batch), with the forward split into the
    backbone and the NFP taps + projections + fc;
 6. the other MobileNetV3 variants: one batch each on the card against the
-   CPU, with each one's launch counts.
+   CPU, with each one's launch counts;
+7. int8 kernels: K4 (``int8_gemm``) and K5 (``int8_conv``) against their
+   plain versions on the card, bit for bit (``torch.equal``), at every
+   ResNet18 shape of int8 serving at B=32 and some at B=128, on ragged
+   shapes, in the s32, fused fp32 and s8 + ReLU forms; times beside the
+   bound (bytes at 3.35 TB/s or int8 operations at 1,979 TOPS), K4 beside
+   ``torch._int_mm`` (cuBLASLt s8, a yardstick the port never calls), K5
+   beside a cuDNN fp32 conv with TF32 off (context only);
+8. serve ResNet18 int8: an int8 ResNet18 + texture_nfp ``Predictor``
+   answers the three requests with 17 K5, 3 K4 and 1 K1 launches per
+   batch and matches a CPU int8 ``Predictor``; then ``calibrate`` on 64
+   images, the same again with 8 of the K5 launches emitting s8, against
+   a CPU ``Predictor`` given the card's scales and chains; forward times
+   at B=32 and B=128, dynamic and calibrated, beside fp32, and a
+   torch.profiler split.
 
 Any failure raises and the exit code is non-zero. The last two lines are a
 JSON record of each kernel and the ``{"ok": true, ...}`` line.
@@ -42,6 +56,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12   # H100 SXM fp32, outside the tensor cores
+INT8_OPS_PER_S = 1979e12   # H100 SXM int8 tensor cores, dense
 RUNS = 50
 
 #: fp32 operations per channel per (position, neighbour) pair, per measure
@@ -218,7 +233,7 @@ def check_kernel(wrapper, cases, main_label, nfp_reference, num_neighbors, nfp_o
 
 def device_profile(fn, steps=5):
     """Device time per call of ``fn`` summed over its kernels, kernels per
-    call, and the three kernels with the most device time, from a
+    call, and the device ms per call of each kernel name, from a
     ``torch.profiler`` trace of ``steps`` calls."""
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -231,9 +246,12 @@ def device_profile(fn, steps=5):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / steps
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    return busy, len(kernels) / steps, top
+    return sum(by_name.values()), len(kernels) / steps, by_name
+
+
+def top3(by_name):
+    return "; ".join(f"{n[:60]} {t:.3f} ms"
+                     for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:3])
 
 
 def requests_of(rng):
@@ -241,14 +259,16 @@ def requests_of(rng):
                         dtype=np.float32) for _ in range(n)] for n in (1, 32, 45)]
 
 
-def match_cpu(Predictor, pred, kw, batches, tag):
-    """The card's answers against a CPU Predictor with the same weights:
-    labels equal and max |dprob| <= 1e-4. ``batches`` are (preprocessed
-    images, the card's output) pairs."""
+def match_cpu(Predictor, pred, kw, batches, tag, setup=None):
+    """The card's answers against a CPU Predictor with the same weights
+    (``setup(cpu)`` first, when given): labels equal and max |dprob| <=
+    1e-4. ``batches`` are (preprocessed images, the card's output) pairs."""
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "weights.pt")
-        torch.save(pred.model.state_dict(), path)
+        torch.save(pred.state_dict(), path)
         cpu = Predictor(**kw, checkpoint=path, device="cpu")
+    if setup is not None:
+        setup(cpu)
     worst = 0.0
     for images, out in batches:
         want = cpu.predict(images, preprocessed=True)
@@ -277,7 +297,25 @@ def answer(pred, requests, tag):
     return outs, lat
 
 
-def serve_resnet18(Predictor, nfp_small_cuda, nfp_large_cuda):
+class Launches:
+    """The launch counters of the kernel wrappers, by kernel name."""
+
+    def __init__(self, **wrappers):
+        self.wrappers = wrappers
+
+    def reset(self):
+        for w in self.wrappers.values():
+            w.launches = 0
+        self.wrappers["int8_conv"].s8_launches = 0
+
+    def read(self):
+        return {k: w.launches for k, w in self.wrappers.items()}
+
+    def s8(self):
+        return self.wrappers["int8_conv"].s8_launches
+
+
+def serve_resnet18(Predictor, launches):
     """The first slice's main path; returns its launches of each kernel."""
     kw = dict(model_type="resnet18", model_variant="texture_nfp", num_classes=21,
               batch_size=32, input_size=224)
@@ -288,14 +326,14 @@ def serve_resnet18(Predictor, nfp_small_cuda, nfp_large_cuda):
     requests = requests_of(np.random.default_rng(0))
     pred.predict(requests[0])  # warm-up: cuDNN plans, first launches
 
-    nfp_small_cuda.launches = nfp_large_cuda.launches = 0
+    launches.reset()
     outs, lat = answer(pred, requests, "serve resnet18")
-    launches = dict(nfp_small=nfp_small_cuda.launches, nfp_large=nfp_large_cuda.launches)
+    counts = launches.read()
 
     expected = sum(-(-len(r) // 32) for r in requests)
-    if launches != dict(nfp_small=expected, nfp_large=0):
-        raise AssertionError(f"serve resnet18: launches {launches}, expected "
-                             f"nfp_small {expected} (= batches), nfp_large 0")
+    if counts != dict(nfp_small=expected, nfp_large=0, int8_gemm=0, int8_conv=0):
+        raise AssertionError(f"serve resnet18: launches {counts}, expected "
+                             f"nfp_small {expected} (= batches) and no other")
     pre = []
     for req in requests:
         t0 = time.perf_counter()
@@ -303,7 +341,7 @@ def serve_resnet18(Predictor, nfp_small_cuda, nfp_large_cuda):
         pre.append(time.perf_counter() - t0)
     print(f"serve resnet18: requests of {[len(r) for r in requests]} images answered in "
           f"{[round(t * 1e3, 2) for t in lat]} ms, of which host preprocessing "
-          f"{[round(t * 1e3, 2) for t in pre]} ms; launches {launches}")
+          f"{[round(t * 1e3, 2) for t in pre]} ms; launches {counts}")
     batch = pred.preprocess(requests[1])
     t0 = time.perf_counter()
     torch.from_numpy(batch).to("cuda")
@@ -329,11 +367,11 @@ def serve_resnet18(Predictor, nfp_small_cuda, nfp_large_cuda):
         print(f"serve resnet18: forward B={b} fp32 {ms:.3f} ms/batch = {b / ms * 1e3:.1f} img/s; "
               f"backbone {backbone_ms:.3f} ms, NFP head + fc {head_ms:.3f} ms "
               f"(median of 20, CUDA events)")
-    return launches
+    return counts
 
 
-def serve_mobilenetv3(Predictor, nfp_small_cuda, nfp_large_cuda, gap2d, nfp):
-    """This slice's main path: MobileNetV3 + multi_stage_nfp; returns its
+def serve_mobilenetv3(Predictor, launches, gap2d, nfp):
+    """The second slice's main path: MobileNetV3 + multi_stage_nfp; returns its
     launches of each kernel."""
     kw = dict(model_type="mobilenetv3", model_variant="multi_stage_nfp", num_classes=21,
               batch_size=32, input_size=224)
@@ -344,17 +382,17 @@ def serve_mobilenetv3(Predictor, nfp_small_cuda, nfp_large_cuda, gap2d, nfp):
     requests = requests_of(np.random.default_rng(2))
     pred.predict(requests[0])  # warm-up
 
-    nfp_small_cuda.launches = nfp_large_cuda.launches = 0
+    launches.reset()
     outs, lat = answer(pred, requests, "serve mobilenetv3")
-    launches = dict(nfp_small=nfp_small_cuda.launches, nfp_large=nfp_large_cuda.launches)
+    counts = launches.read()
 
     batches = sum(-(-len(r) // 32) for r in requests)
-    want = dict(nfp_small=2 * batches, nfp_large=3 * batches)
-    if launches != want:
-        raise AssertionError(f"serve mobilenetv3: launches {launches}, expected {want} "
+    want = dict(nfp_small=2 * batches, nfp_large=3 * batches, int8_gemm=0, int8_conv=0)
+    if counts != want:
+        raise AssertionError(f"serve mobilenetv3: launches {counts}, expected {want} "
                              f"(3 x K2 and 2 x K1 per batch, {batches} batches)")
     print(f"serve mobilenetv3: requests of {[len(r) for r in requests]} images answered in "
-          f"{[round(t * 1e3, 2) for t in lat]} ms; launches {launches} over {batches} batches")
+          f"{[round(t * 1e3, 2) for t in lat]} ms; launches {counts} over {batches} batches")
     match_cpu(Predictor, pred, kw, [(pred.preprocess(r), o) for r, o in zip(requests, outs)],
               "serve mobilenetv3")
 
@@ -372,7 +410,7 @@ def serve_mobilenetv3(Predictor, nfp_small_cuda, nfp_large_cuda, gap2d, nfp):
             ms = median_ms(lambda: model(x), runs=20)
             backbone_ms = median_ms(lambda: model.backbone(x, mode="features+head"), runs=20)
             nfp_ms = median_ms(lambda: taps_and_head(feats, head), runs=20)
-            busy, n_kernels, top = device_profile(lambda: model(x))
+            busy, n_kernels, by_name = device_profile(lambda: model(x))
         print(f"serve mobilenetv3: forward B={b} fp32 {ms:.3f} ms/batch = "
               f"{b / ms * 1e3:.1f} img/s; backbone (features+head) {backbone_ms:.3f} ms, "
               f"five NFP taps + projections + fc {nfp_ms:.3f} ms (median of 20, CUDA events)")
@@ -382,12 +420,11 @@ def serve_mobilenetv3(Predictor, nfp_small_cuda, nfp_large_cuda, gap2d, nfp):
             continue
         print(f"serve mobilenetv3: forward B={b} torch.profiler: {n_kernels:.0f} kernels, "
               f"{busy:.3f} ms of device time per forward ({1 - busy / ms:.1%} of the "
-              f"{ms:.3f} ms forward idle); most time: "
-              + "; ".join(f"{n[:60]} {t:.3f} ms" for n, t in top))
-    return launches
+              f"{ms:.3f} ms forward idle); most time: " + top3(by_name))
+    return counts
 
 
-def other_mobilenetv3_variants(Predictor, nfp_small_cuda, nfp_large_cuda):
+def other_mobilenetv3_variants(Predictor, launches):
     """One batch of 8 of each other MobileNetV3 variant on the card against
     the CPU, with each variant's launch counts."""
     x = np.random.default_rng(4).standard_normal((8, 224, 224, 3)).astype(np.float32)
@@ -397,14 +434,217 @@ def other_mobilenetv3_variants(Predictor, nfp_small_cuda, nfp_large_cuda):
         kw = dict(model_type="mobilenetv3", model_variant=variant, num_classes=21,
                   batch_size=8, input_size=224)
         pred = Predictor(**kw, device="cuda")
-        nfp_small_cuda.launches = nfp_large_cuda.launches = 0
+        launches.reset()
         out = pred.predict(x, preprocessed=True)
-        got = (nfp_large_cuda.launches, nfp_small_cuda.launches)
+        counts = launches.read()
+        got = (counts["nfp_large"], counts["nfp_small"])
         if got != MNV3_LAUNCHES[variant]:
             raise AssertionError(f"mobilenetv3/{variant}: (K2, K1) launches {got}, "
                                  f"expected {MNV3_LAUNCHES[variant]}")
         print(f"variant mobilenetv3/{variant}: K2 launches {got[0]}, K1 launches {got[1]}")
         match_cpu(Predictor, pred, kw, [(x, out)], f"variant mobilenetv3/{variant}")
+
+
+#: K4 cases: (label, M, K, N, forms); the ResNet18 downsample GEMMs at 224 px
+K4_MAIN = "layer2 downsample B=32 fp32"
+K4_SHAPES = [("layer2 downsample B=32", 25088, 64, 128), ("layer3 downsample B=32", 6272, 128, 256),
+             ("layer4 downsample B=32", 1568, 256, 512), ("layer2 downsample B=128", 100352, 64, 128),
+             ("layer3 downsample B=128", 25088, 128, 256), ("layer4 downsample B=128", 6272, 256, 512),
+             ("ragged M, K, N", 1000, 100, 70), ("ragged, tiny", 37, 300, 9)]
+#: output forms: (label, with scale and bias, out dtype, relu)
+INT8_FORMS = [("s32", False, torch.int32, False), ("fp32", True, torch.float32, False),
+              ("s8 relu", True, torch.int8, True)]
+#: K5 cases: (label, x shape, (kh, kw, cout), padding, strides, forms)
+K5_MAIN = "layer1 3x3 B=32 fp32"
+K5_SHAPES = [
+    ("stem 7x7/2 B=32", (32, 224, 224, 3), (7, 7, 64), ((3, 3), (3, 3)), (2, 2)),
+    ("layer1 3x3 B=32", (32, 56, 56, 64), (3, 3, 64), ((1, 1), (1, 1)), (1, 1)),
+    ("layer2.0 3x3/2 B=32", (32, 56, 56, 64), (3, 3, 128), ((1, 1), (1, 1)), (2, 2)),
+    ("layer2 3x3 B=32", (32, 28, 28, 128), (3, 3, 128), ((1, 1), (1, 1)), (1, 1)),
+    ("layer3.0 3x3/2 B=32", (32, 28, 28, 128), (3, 3, 256), ((1, 1), (1, 1)), (2, 2)),
+    ("layer3 3x3 B=32", (32, 14, 14, 256), (3, 3, 256), ((1, 1), (1, 1)), (1, 1)),
+    ("layer4.0 3x3/2 B=32", (32, 14, 14, 256), (3, 3, 512), ((1, 1), (1, 1)), (2, 2)),
+    ("layer4 3x3 B=32", (32, 7, 7, 512), (3, 3, 512), ((1, 1), (1, 1)), (1, 1)),
+    ("layer1 3x3 B=128", (128, 56, 56, 64), (3, 3, 64), ((1, 1), (1, 1)), (1, 1)),
+    ("5x5 asymmetric pads, Cin 24, Cout 40", (3, 29, 23, 24), (5, 5, 40), ((2, 1), (0, 3)), (2, 1)),
+    ("3x3 SAME, Cin 16, Cout 70, odd map", (2, 15, 13, 16), (3, 3, 70), "SAME", (1, 1)),
+]
+#: the forms each case runs in: every form where the main path emits it or
+#: the case is ragged, else the main path's fp32 form
+K4_FORMS = {"layer2 downsample B=32": "all", "ragged M, K, N": "all", "ragged, tiny": "all"}
+K5_FORMS = {"layer1 3x3 B=32": "all", "layer2.0 3x3/2 B=32": "all", "layer4 3x3 B=32": "all",
+            "stem 7x7/2 B=32": "all", "5x5 asymmetric pads, Cin 24, Cout 40": "all",
+            "3x3 SAME, Cin 16, Cout 70, odd map": "all"}
+
+
+def _forms(table, label):
+    return INT8_FORMS if table.get(label) == "all" else INT8_FORMS[1:2]
+
+
+def _int_mm_ms(a, b):
+    """``torch._int_mm`` (cuBLASLt s8 × s8 → s32) on the operands, row- or
+    else column-major B; None (with the reason) where it refuses them."""
+    for bb in (b, b.t().contiguous().t()):
+        try:
+            torch._int_mm(a, bb)
+        except RuntimeError as e:
+            err = str(e).splitlines()[0]
+            continue
+        return median_ms(lambda: torch._int_mm(a, bb)), None
+    return None, err
+
+
+def check_int8_kernels(int8_gemm, int8_gemm_reference, int8_conv2d, int8_conv2d_reference):
+    """K4 and K5 against their plain versions on the card, bit for bit,
+    with times and bounds; returns each kernel's main-path row."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def s8(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    def epilogue(n, with_scale):
+        if not with_scale:
+            return {}
+        return dict(scale=torch.rand(n, generator=gen, device="cuda") * 5e-3 + 1e-4,
+                    bias=torch.rand(n, generator=gen, device="cuda") * 4 - 2)
+
+    def check(label, kernel, plain, n_ops, in_bytes, out_numel):
+        out = kernel()
+        if not torch.equal(out, kernel()):
+            raise AssertionError(f"{label}: two launches on the same input differ")
+        torch.cuda.synchronize()
+        ref = plain()
+        if out.dtype != ref.dtype or out.shape != ref.shape or not torch.equal(out, ref):
+            err = (out.double() - ref.double()).abs().max().item() if out.shape == ref.shape else None
+            raise AssertionError(f"{label}: kernel {tuple(out.shape)} {out.dtype} differs from "
+                                 f"the plain version {tuple(ref.shape)} {ref.dtype} (max |err| {err})")
+        k_ms, p_ms = median_ms(kernel), median_ms(plain)
+        n_bytes = in_bytes + out_numel * out.element_size()
+        bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / INT8_OPS_PER_S * 1e3
+        row = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        print(f"  {label:52s} kernel {k_ms * 1e3:9.2f} us  plain {p_ms * 1e3:9.2f} us  "
+              f"bound {row['bound_ms'] * 1e3:7.2f} us ({row['bound_by']}), equal")
+        return row
+
+    rows = {}
+    print("kernels: int8_gemm (K4) against int8_gemm_reference on the card (torch.equal)")
+    for label, m, k, n in K4_SHAPES:
+        a, b = s8((m, k)), s8((k, n))
+        for form, with_scale, out_dtype, relu in _forms(K4_FORMS, label):
+            kw = dict(epilogue(n, with_scale), relu=relu)
+            if with_scale:
+                kw["out_dtype"] = out_dtype
+            in_bytes = a.numel() + b.numel() + 8 * n * with_scale
+            row = check(f"{label} {form} ({m},{k})x({k},{n})",
+                        lambda: int8_gemm(a, b, **kw), lambda: int8_gemm_reference(a, b, **kw),
+                        2 * m * n * k, in_bytes, m * n)
+            if f"{label} {form}" == K4_MAIN:
+                lib_ms, why = _int_mm_ms(a, b)
+                s32_ms = median_ms(lambda: int8_gemm(a, b))
+                print(f"  {label}: torch._int_mm (cuBLASLt s8 -> s32, no epilogue) "
+                      + (f"{lib_ms * 1e3:.2f} us" if lib_ms is not None else f"refused: {why}")
+                      + f"; K4 in its s32 form {s32_ms * 1e3:.2f} us")
+                rows["int8_gemm"] = dict(row, library_ms=lib_ms)
+    print("kernels: int8_conv (K5) against int8_conv2d_reference on the card (torch.equal)")
+    for label, xshape, (kh, kw_, cout), padding, strides in K5_SHAPES:
+        x, w = s8(xshape), s8((kh, kw_, xshape[3], cout))
+        ho = wo = None
+        for form, with_scale, out_dtype, relu in _forms(K5_FORMS, label):
+            kw = dict(epilogue(cout, with_scale), relu=relu, padding=padding, strides=strides)
+            if with_scale:
+                kw["out_dtype"] = out_dtype
+            out = int8_conv2d(x, w, **kw)
+            _, ho, wo, _ = out.shape
+            in_bytes = x.numel() + w.numel() + 8 * cout * with_scale
+            row = check(f"{label} {form} {tuple(xshape)}*({kh},{kw_},{xshape[3]},{cout})/{strides[0]}",
+                        lambda: int8_conv2d(x, w, **kw), lambda: int8_conv2d_reference(x, w, **kw),
+                        2 * out.shape[0] * ho * wo * cout * kh * kw_ * xshape[3], in_bytes, out.numel())
+            if f"{label} {form}" == K5_MAIN:
+                rows["int8_conv"] = dict(row, library_ms=None)
+        if xshape[0] == 32 and padding != "SAME":
+            xf = x.float().permute(0, 3, 1, 2)  # channels_last NCHW, as the fp32 model
+            wf = w.float().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            cudnn_ms = median_ms(lambda: F.conv2d(xf, wf, stride=strides,
+                                                  padding=(padding[0][0], padding[1][0])))
+            print(f"  {label}: cuDNN fp32 conv at the same shape, TF32 off: {cudnn_ms * 1e3:.2f} us "
+                  f"(context, not a yardstick: PyTorch has no int8 conv on CUDA)")
+    return rows
+
+
+def forward_ms(model, x, tag):
+    """Forward ms at the batch of ``x`` (median of 20, CUDA events)."""
+    with torch.inference_mode():
+        ms = median_ms(lambda: model(x), runs=20)
+    b = x.shape[0]
+    print(f"{tag}: forward B={b} {ms:.3f} ms/batch = {b / ms * 1e3:.1f} img/s "
+          f"(median of 20, CUDA events)")
+    return ms
+
+
+def serve_resnet18_int8(Predictor, launches):
+    """The third slice's main path: int8 ResNet18 + texture_nfp, dynamic, then
+    calibrated; returns its launches of each kernel."""
+    kw = dict(model_type="resnet18", model_variant="texture_nfp", num_classes=21,
+              batch_size=32, input_size=224, quantize="int8")
+    t0 = time.perf_counter()
+    pred = Predictor(**kw, device="cuda")
+    print(f"serve resnet18 int8: Predictor(resnet18, texture_nfp, 21 classes, batch_size=32, "
+          f"224 px, quantize='int8') on cuda in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(6)
+    requests = requests_of(rng)
+    batches = sum(-(-len(r) // 32) for r in requests)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    xs = {b: torch.randn((b, 224, 224, 3), generator=gen, device="cuda") for b in (32, 128)}
+    fp32 = Predictor(**dict(kw, quantize=None), device="cuda").model
+    total = {k: 0 for k in launches.wrappers}
+
+    for tier in ("dynamic", "calibrated"):
+        tag = f"serve resnet18 int8 {tier}"
+        if tier == "calibrated":
+            t0 = time.perf_counter()
+            n_layers = pred.calibrate([rng.random((256, 256, 3), dtype=np.float32)
+                                       for _ in range(64)])
+            print(f"{tag}: calibrate() on 64 images: {n_layers} layers, "
+                  f"{len(pred._int8_chains or {})} chains, in {time.perf_counter() - t0:.2f} s")
+        pred.predict(requests[0])  # warm-up
+        launches.reset()
+        outs, lat = answer(pred, requests, tag)
+        counts, s8 = launches.read(), launches.s8()
+        want = dict(nfp_small=batches, nfp_large=0, int8_gemm=3 * batches, int8_conv=17 * batches)
+        want_s8 = 8 * batches if tier == "calibrated" else 0
+        if counts != want or s8 != want_s8:
+            raise AssertionError(f"{tag}: launches {counts}, {s8} emitting s8; expected {want}, "
+                                 f"{want_s8} emitting s8 (17 K5, 3 K4, 1 K1 per batch)")
+        total = {k: total[k] + counts[k] for k in total}
+        print(f"{tag}: requests of {[len(r) for r in requests]} images answered in "
+              f"{[round(t * 1e3, 2) for t in lat]} ms; launches {counts}, {s8} K5 launches "
+              f"emitting s8, over {batches} batches")
+
+        def copy_calibration(cpu):
+            cpu._act_scales, cpu._int8_chains = dict(pred._act_scales), dict(pred._int8_chains)
+            cpu._rebuild()
+
+        match_cpu(Predictor, pred, kw, [(pred.preprocess(r), o) for r, o in zip(requests, outs)],
+                  tag, setup=copy_calibration if tier == "calibrated" else None)
+        for b, x in xs.items():
+            ms = forward_ms(pred.model, x, tag)
+            if tier == "dynamic":
+                forward_ms(fp32, x, "serve resnet18 fp32 (same run)")
+            with torch.inference_mode():
+                busy, n_kernels, by_name = device_profile(lambda: pred.model(x))
+            if not n_kernels:
+                print(f"{tag}: forward B={b} torch.profiler recorded no device events: "
+                      f"device time not measured")
+                continue
+            k4 = sum(t for n, t in by_name.items() if "int8_gemm_kernel" in n)
+            k5 = sum(t for n, t in by_name.items() if "int8_conv_kernel" in n)
+            print(f"{tag}: forward B={b} torch.profiler: {n_kernels:.0f} kernels, {busy:.3f} ms "
+                  f"of device time per forward ({1 - busy / ms:.1%} of the {ms:.3f} ms forward "
+                  f"idle); K5 {k5:.3f} ms, K4 {k4:.3f} ms per forward; most time: "
+                  + top3(by_name))
+    return total
 
 
 def main():
@@ -415,6 +655,8 @@ def main():
     from neighbour_feature_pooling_tpu_torch.ops.neighborhood import (
         nfp_output_size, nfp_reference, num_neighbors)
     from neighbour_feature_pooling_tpu_torch.models.heads import gap2d
+    from neighbour_feature_pooling_tpu_torch.ops.int8_conv import int8_conv2d, int8_conv2d_reference
+    from neighbour_feature_pooling_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_reference
     from neighbour_feature_pooling_tpu_torch.ops.nfp_cuda import nfp, nfp_large_cuda, nfp_small_cuda
     from neighbour_feature_pooling_tpu_torch.serve import Predictor
 
@@ -446,18 +688,27 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"serve: torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
-    per_path = [serve_resnet18(Predictor, nfp_small_cuda, nfp_large_cuda),
-                serve_mobilenetv3(Predictor, nfp_small_cuda, nfp_large_cuda, gap2d, nfp)]
-    other_mobilenetv3_variants(Predictor, nfp_small_cuda, nfp_large_cuda)
-    launches = {k: sum(p[k] for p in per_path) for k in rows}
+    rows.update(check_int8_kernels(int8_gemm, int8_gemm_reference, int8_conv2d,
+                                   int8_conv2d_reference))
+    launches = Launches(nfp_small=nfp_small_cuda, nfp_large=nfp_large_cuda,
+                        int8_gemm=int8_gemm, int8_conv=int8_conv2d)
+    per_path = [serve_resnet18(Predictor, launches),
+                serve_mobilenetv3(Predictor, launches, gap2d, nfp)]
+    other_mobilenetv3_variants(Predictor, launches)
+    per_path.append(serve_resnet18_int8(Predictor, launches))
+    counts = {k: sum(p[k] for p in per_path) for k in rows}
 
     sources = dict(nfp_small=("neighbour_feature_pooling_tpu_torch/csrc/nfp_small.cu",
                               "neighbour_feature_pooling_tpu/ops/nfp_pallas.py:69"),
                    nfp_large=("neighbour_feature_pooling_tpu_torch/csrc/nfp_large.cu",
-                              "neighbour_feature_pooling_tpu/ops/nfp_pallas.py:156"))
+                              "neighbour_feature_pooling_tpu/ops/nfp_pallas.py:156"),
+                   int8_gemm=("neighbour_feature_pooling_tpu_torch/csrc/int8_gemm.cu",
+                              "neighbour_feature_pooling_tpu/ops/int8_gemm.py:39"),
+                   int8_conv=("neighbour_feature_pooling_tpu_torch/csrc/int8_conv.cu",
+                              "neighbour_feature_pooling_tpu/ops/int8_conv.py:91"))
     print(json.dumps({"kernels": [dict(
         name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],
-        launches=launches[k], library_ms=None, **rows[k]) for k in rows]}))
+        launches=counts[k], **{"library_ms": None, **rows[k]}) for k in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
 

@@ -29,7 +29,7 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax"]
+__all__ = ["state_dict_from_flax", "torch_module_name"]
 
 _PARAM_LEAVES = {"scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
@@ -62,6 +62,13 @@ def _module_key(path: Tuple[str, ...]) -> str:
             p = re.sub(r"^blocks_(\d+)_(\d+)$", r"blocks.\1.\2", p)
         parts.append(p)
     return ".".join(parts)
+
+
+def torch_module_name(path: Tuple[str, ...]) -> str:
+    """The port's module name of a JAX layer path, e.g. ``("backbone",
+    "layer2_0", "downsample_conv")`` → ``"backbone.layer2.0.downsample.0"``
+    (the keys of the JAX ``quant`` dicts → the port's)."""
+    return _module_key(tuple(path))
 
 
 def _param(name: str, value: np.ndarray) -> Tuple[str, np.ndarray]:

@@ -2,9 +2,14 @@
 
 Ported so far: ``nfp`` — Neighborhood Feature Pooling, with the small-map
 and large-map CUDA kernels (``nfp_cuda.py``) and their plain PyTorch
-version (``neighborhood.nfp_reference``).
+version (``neighborhood.nfp_reference``); the int8 GEMM and conv of the
+int8 serving tier (``int8_gemm.py``, ``int8_conv.py``) with their plain
+versions and the shared ``common.dequant_epilogue``.
 """
 
+from .common import dequant_epilogue  # noqa: F401
+from .int8_conv import int8_conv2d, int8_conv2d_reference  # noqa: F401
+from .int8_gemm import int8_gemm, int8_gemm_reference  # noqa: F401
 from .measures import (  # noqa: F401
     MEASURES,
     MEASURE_NAMES,

@@ -264,6 +264,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import neighbour_feature_pooling_tpu_torch.ops\n"
         "import neighbour_feature_pooling_tpu_torch.models.from_jax\n"
         "import neighbour_feature_pooling_tpu_torch.models.backbones.mobilenetv3\n"
+        "import neighbour_feature_pooling_tpu_torch.quant\n"
+        "import neighbour_feature_pooling_tpu_torch.ops.int8_gemm\n"
+        "import neighbour_feature_pooling_tpu_torch.ops.int8_conv\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'neighbour_feature_pooling_tpu'"
         " or m.startswith('neighbour_feature_pooling_tpu.'))\n"

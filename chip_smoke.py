@@ -13,7 +13,7 @@ Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
    times both (CUDA events, median of 50 runs queued behind a GPU sleep, so
    host launch overhead is not timed), beside the least time the card could
    take (bytes at 3.35 TB/s or fp32 operations at 67 TFLOP/s, whichever is
-   larger): K1 (``nfp_small``) and K2 (``nfp_large``);
+   larger): K1 (``nfp_small``), K2 (``nfp_large``) and K3 (``nfp_strip``);
 4. serve ResNet18: a ResNet18 + texture_nfp ``Predictor`` on the card with
    seeded weights answers three requests (1, 32, 45 images), goes through
    K1 once per batch, and matches a CPU ``Predictor`` with the same weights
@@ -37,7 +37,13 @@ Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
    images, the same again with 8 of the K5 launches emitting s8, against
    a CPU ``Predictor`` given the card's scales and chains; forward times
    at B=32 and B=128, dynamic and calibrated, beside fp32, and a
-   torch.profiler split.
+   torch.profiler split;
+9. kernel entry: the port's bench tool
+   (``tools/bench_nfp_kernel.py``) in-process through ``ops.nfp_kernel``,
+   the counterpart of the JAX ``nfp_pallas``, at its four shapes, fused and
+   not, with ``cosine`` (K2) and ``pearson`` (K3), plus one 16x16 map (K1);
+   the launch counters show each route, every output is held against the
+   plain version, and kernel and plain times are printed per shape.
 
 Any failure raises and the exit code is non-zero. The last two lines are a
 JSON record of each kernel and the ``{"ok": true, ...}`` line.
@@ -45,7 +51,6 @@ JSON record of each kernel and the ``{"ok": true, ...}`` line.
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -76,24 +81,9 @@ MNV3_LAUNCHES = {"multi_stage_nfp": (3, 2), "mid_nfp": (1, 0),
 
 def median_ms(fn, runs=RUNS):
     """Median device time of ``fn`` over ``runs`` runs, each between two
-    CUDA events. All runs are queued behind a GPU sleep long enough for the
-    host to enqueue them, so the device runs them back to back."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(runs)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(runs)]
-    torch.cuda._sleep(int(min(2.0 * runs * host_s, 2.0) * 2e9))  # cycles
-    for s, e in zip(starts, ends):
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+    CUDA events, queued behind a GPU sleep (``tools/common.py``)."""
+    from neighbour_feature_pooling_tpu_torch.tools.common import median_ms as timed
+    return timed(fn, runs, warmup=3)
 
 
 def bf16_ulp(v):
@@ -183,13 +173,20 @@ def k2_cases():
 
 
 def check_kernel(wrapper, cases, main_label, nfp_reference, num_neighbors, nfp_output_size):
-    """Every case against the plain version; returns the main-path case's row."""
+    """Every case against the plain version; returns the main-path case's row.
+    A case's kwargs may add ``offset`` (added to the random input) and
+    ``constant`` (one random pixel repeated over the whole map)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_row = None
     for label, shape, dtype, measure, kw in cases:
         kw = dict(kw)
         radius = kw.pop("radius", 1)
-        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        offset, constant = kw.pop("offset", 0.0), kw.pop("constant", False)
+        if constant:
+            pixel = torch.randn((shape[0], 1, 1, shape[3]), generator=gen, device="cuda")
+            x = pixel.expand(shape).contiguous().to(dtype)
+        else:
+            x = (torch.randn(shape, generator=gen, device="cuda") + offset).to(dtype)
         out = wrapper(x, radius, measure, **kw)
         if not torch.equal(out, wrapper(x, radius, measure, **kw)):
             raise AssertionError(f"{label}: two launches on the same input differ")
@@ -229,6 +226,46 @@ def check_kernel(wrapper, cases, main_label, nfp_reference, num_neighbors, nfp_o
         if label == main_label:
             main_row = row
     return main_row
+
+
+K3_MAIN = "tap 1 B=32 float32 pearson"
+
+
+def k3_cases():
+    """(label, shape, dtype, measure, kwargs) for the strip kernel K3: maps
+    above 256 positions, ``pearson`` (the measure ``nfp_kernel`` sends it)
+    at the bench shapes and geometry corners, then other stat-free
+    measures run on K3 directly."""
+    gap, pad1 = dict(padding=1, fuse_gap=True), dict(padding=1)
+    tap1, mid = (32, 112, 112, 16), (8, 56, 56, 24)
+    cases = [
+        (K3_MAIN, tap1, torch.float32, "pearson", gap),
+        ("tap 1 B=32 float32 pearson map", tap1, torch.float32, "pearson", pad1),
+        ("resnet_layer1 pearson", (16, 56, 56, 64), torch.float32, "pearson", gap),
+        ("resnet_layer1 pearson map", (16, 56, 56, 64), torch.float32, "pearson", pad1),
+        ("pearson similarity=False", mid, torch.float32, "pearson",
+         dict(gap, similarity=False)),
+        ("tap 2 B=32 bfloat16 pearson", (32, 56, 56, 24), torch.bfloat16, "pearson", gap),
+        ("tap 2 B=32 bfloat16 pearson map", (32, 56, 56, 24), torch.bfloat16, "pearson", pad1),
+        ("pearson R=2 dilation=2", mid, torch.float32, "pearson",
+         dict(radius=2, dilation=2, padding=4, fuse_gap=True)),
+        ("pearson odd 57x43", (8, 57, 43, 24), torch.float32, "pearson", gap),
+    ]
+    for mode in ("zeros", "reflect", "replicate", "circular"):
+        cases.append((f"pearson {mode} pad 2 map", mid, torch.float32, "pearson",
+                      dict(padding=2, padding_mode=mode)))
+    cases += [
+        ("pearson C=30 scalar loads", (8, 56, 56, 30), torch.float32, "pearson", gap),
+        ("pearson input offset +3", mid, torch.float32, "pearson", dict(gap, offset=3.0)),
+        ("pearson constant map, zeros pad", mid, torch.float32, "pearson",
+         dict(padding=1, padding_mode="zeros", constant=True)),
+    ]
+    for measure, kw in (("cosine", {}), ("norm", dict(p=3.0)), ("smith", {}), ("jeffrey", {}),
+                        ("scs", dict(p=2.0)), ("attention", {})):
+        kw = dict(gap, **kw)
+        label = measure + "".join(f" {k}={v}" for k, v in kw.items() if k != "padding")
+        cases.append((label, mid, torch.float32, measure, kw))
+    return cases
 
 
 def device_profile(fn, steps=5):
@@ -331,7 +368,7 @@ def serve_resnet18(Predictor, launches):
     counts = launches.read()
 
     expected = sum(-(-len(r) // 32) for r in requests)
-    if counts != dict(nfp_small=expected, nfp_large=0, int8_gemm=0, int8_conv=0):
+    if counts != dict(nfp_small=expected, nfp_large=0, nfp_strip=0, int8_gemm=0, int8_conv=0):
         raise AssertionError(f"serve resnet18: launches {counts}, expected "
                              f"nfp_small {expected} (= batches) and no other")
     pre = []
@@ -387,7 +424,8 @@ def serve_mobilenetv3(Predictor, launches, gap2d, nfp):
     counts = launches.read()
 
     batches = sum(-(-len(r) // 32) for r in requests)
-    want = dict(nfp_small=2 * batches, nfp_large=3 * batches, int8_gemm=0, int8_conv=0)
+    want = dict(nfp_small=2 * batches, nfp_large=3 * batches, nfp_strip=0, int8_gemm=0,
+                int8_conv=0)
     if counts != want:
         raise AssertionError(f"serve mobilenetv3: launches {counts}, expected {want} "
                              f"(3 x K2 and 2 x K1 per batch, {batches} batches)")
@@ -612,7 +650,8 @@ def serve_resnet18_int8(Predictor, launches):
         launches.reset()
         outs, lat = answer(pred, requests, tag)
         counts, s8 = launches.read(), launches.s8()
-        want = dict(nfp_small=batches, nfp_large=0, int8_gemm=3 * batches, int8_conv=17 * batches)
+        want = dict(nfp_small=batches, nfp_large=0, nfp_strip=0, int8_gemm=3 * batches,
+                    int8_conv=17 * batches)
         want_s8 = 8 * batches if tier == "calibrated" else 0
         if counts != want or s8 != want_s8:
             raise AssertionError(f"{tag}: launches {counts}, {s8} emitting s8; expected {want}, "
@@ -647,6 +686,41 @@ def serve_resnet18_int8(Predictor, launches):
     return total
 
 
+def kernel_entry(launches, bench, nfp_kernel, nfp_reference):
+    """The fourth slice's main path: the port's bench tool through
+    ``nfp_kernel`` at its four shapes, fused and not, with ``cosine`` (K2)
+    and ``pearson`` (K3), and one 16x16 map (K1); returns its launches of
+    each kernel. The counted run checks each output against the plain
+    version (fp32 rtol = atol = 1e-5) once; the timing runs come after."""
+    x16 = torch.randn((16, 16, 16, 64), generator=torch.Generator(device="cuda").manual_seed(8),
+                      device="cuda")
+    launches.reset()
+    records = [r for m in ("cosine", "pearson") for r in bench.run(m, iters=0)]
+    small = nfp_kernel(x16, 1, "pearson", padding=1)
+    counts = launches.read()
+
+    n = len(bench.SHAPES) * len(bench.FUSE_OPTS["both"])
+    want = dict(nfp_small=1, nfp_large=n, nfp_strip=n, int8_gemm=0, int8_conv=0)
+    routes = {m: sorted({r["route"] for r in records if r["measure"] == m})
+              for m in ("cosine", "pearson")}
+    if counts != want or routes != {"cosine": ["k2"], "pearson": ["k3"]}:
+        raise AssertionError(f"kernel entry: launches {counts}, routes {routes}; expected {want}, "
+                             f"cosine on k2, pearson on k3 and the 16x16 map on k1")
+    torch.cuda.synchronize()
+    if not torch.allclose(small, nfp_reference(x16, 1, "pearson", padding=1), rtol=1e-5, atol=1e-5):
+        raise AssertionError("kernel entry: the 16x16 map disagrees with the plain version")
+    worst = max(r["max_err"] for r in records)
+    print(f"kernel entry: nfp_kernel launches {counts} over {len(records)} bench configurations "
+          f"and one 16x16 map; all within rtol=atol=1e-5 of the plain version "
+          f"(max |err| {worst:.3e})")
+    for m in ("cosine", "pearson"):
+        for r in bench.run(m, iters=RUNS):
+            print(f"  {m:8s} {r['route']} {r['shape']:14s} ({r['B']},{r['H']},{r['W']},{r['C']}) "
+                  f"fuse_gap={r['fuse_gap']!s:5s} kernel {r['kernel_ms'] * 1e3:9.2f} us  "
+                  f"plain {r['plain_ms'] * 1e3:9.2f} us  max|err| {r['max_err']:.3e}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device and none is available")
@@ -657,7 +731,9 @@ def main():
     from neighbour_feature_pooling_tpu_torch.models.heads import gap2d
     from neighbour_feature_pooling_tpu_torch.ops.int8_conv import int8_conv2d, int8_conv2d_reference
     from neighbour_feature_pooling_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_reference
-    from neighbour_feature_pooling_tpu_torch.ops.nfp_cuda import nfp, nfp_large_cuda, nfp_small_cuda
+    from neighbour_feature_pooling_tpu_torch.ops.nfp_cuda import (
+        nfp, nfp_kernel, nfp_large_cuda, nfp_small_cuda, nfp_strip_cuda)
+    from neighbour_feature_pooling_tpu_torch.tools import bench_nfp_kernel
     from neighbour_feature_pooling_tpu_torch.serve import Predictor
 
     name = torch.cuda.get_device_name(0)
@@ -683,6 +759,10 @@ def main():
           "(fp32 rtol=atol=1e-5; bf16 within one bf16 ulp)")
     rows["nfp_large"] = check_kernel(nfp_large_cuda, k2_cases(), K2_MAIN,
                                      nfp_reference, num_neighbors, nfp_output_size)
+    print("kernels: nfp_strip (K3) against nfp_reference on the card "
+          "(fp32 rtol=atol=1e-5; bf16 within one bf16 ulp)")
+    rows["nfp_strip"] = check_kernel(nfp_strip_cuda, k3_cases(), K3_MAIN,
+                                     nfp_reference, num_neighbors, nfp_output_size)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -691,17 +771,20 @@ def main():
     rows.update(check_int8_kernels(int8_gemm, int8_gemm_reference, int8_conv2d,
                                    int8_conv2d_reference))
     launches = Launches(nfp_small=nfp_small_cuda, nfp_large=nfp_large_cuda,
-                        int8_gemm=int8_gemm, int8_conv=int8_conv2d)
+                        nfp_strip=nfp_strip_cuda, int8_gemm=int8_gemm, int8_conv=int8_conv2d)
     per_path = [serve_resnet18(Predictor, launches),
                 serve_mobilenetv3(Predictor, launches, gap2d, nfp)]
     other_mobilenetv3_variants(Predictor, launches)
     per_path.append(serve_resnet18_int8(Predictor, launches))
+    per_path.append(kernel_entry(launches, bench_nfp_kernel, nfp_kernel, nfp_reference))
     counts = {k: sum(p[k] for p in per_path) for k in rows}
 
     sources = dict(nfp_small=("neighbour_feature_pooling_tpu_torch/csrc/nfp_small.cu",
                               "neighbour_feature_pooling_tpu/ops/nfp_pallas.py:69"),
                    nfp_large=("neighbour_feature_pooling_tpu_torch/csrc/nfp_large.cu",
                               "neighbour_feature_pooling_tpu/ops/nfp_pallas.py:156"),
+                   nfp_strip=("neighbour_feature_pooling_tpu_torch/csrc/nfp_strip.cu",
+                              "neighbour_feature_pooling_tpu/ops/nfp_pallas.py:105"),
                    int8_gemm=("neighbour_feature_pooling_tpu_torch/csrc/int8_gemm.cu",
                               "neighbour_feature_pooling_tpu/ops/int8_gemm.py:39"),
                    int8_conv=("neighbour_feature_pooling_tpu_torch/csrc/int8_conv.cu",

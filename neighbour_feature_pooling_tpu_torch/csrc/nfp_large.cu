@@ -33,8 +33,9 @@
 //    plain version do; the TPU body finalizes the mean instead, which agrees
 //    up to rounding), summed over the block in a fixed order (warp shuffle
 //    tree, then the warps in order) and written as one partial per
-//    (image, tile, neighbour); nfp_gap_reduce sums the partials of an image
-//    in tile order and divides by the position count. No atomics.
+//    (image, tile, neighbour); gap_reduce (nfp_measures.cuh, shared with
+//    K3) sums the partials of an image in tile order and divides by the
+//    position count. No atomics.
 //  * Output is fp32: (B, N) with fuse_gap, else (B, H', W', N); the Python
 //    wrapper casts it to the input dtype.
 //
@@ -105,18 +106,6 @@ nfp_large_kernel(const T* __restrict__ x, float* __restrict__ out,
   }
 }
 
-// One block per image: the mean over positions from the per-tile partials.
-__global__ void nfp_gap_reduce(const float* __restrict__ partial,
-                               float* __restrict__ out, int n_tiles, int n_nb,
-                               int n_pos) {
-  const long long b = blockIdx.x;
-  for (int nb = threadIdx.x; nb < n_nb; nb += blockDim.x) {
-    float s = 0.f;
-    for (int t = 0; t < n_tiles; ++t) s += partial[(b * n_tiles + t) * n_nb + nb];
-    out[b * n_nb + nb] = s / (float)n_pos;
-  }
-}
-
 template <typename T>
 int launch(const void* x, void* out, void* partial, int batch, const Args& a,
            cudaStream_t stream) {
@@ -133,13 +122,10 @@ int launch(const void* x, void* out, void* partial, int batch, const Args& a,
   nfp_large_kernel<T><<<dim3(n_tiles, batch), kTile, smem, stream>>>(
       static_cast<const T*>(x), static_cast<float*>(out),
       static_cast<float*>(partial), a);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !a.fuse_gap) return (int)e;
-  nfp_gap_reduce<<<batch, n_nb < 32 ? 32 : (n_nb < 1024 ? n_nb : 1024), 0,
-                   stream>>>(static_cast<const float*>(partial),
-                             static_cast<float*>(out), n_tiles, n_nb,
-                             a.Ho * a.Wo);
-  return (int)cudaGetLastError();
+  return launch_gap_reduce(partial, out, batch, n_tiles, n_nb, a.Ho * a.Wo,
+                           stream);
 }
 
 }  // namespace

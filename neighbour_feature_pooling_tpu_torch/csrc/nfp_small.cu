@@ -28,8 +28,9 @@
 //    of the map is never written. The input is the unpadded NHWC map.
 //  * Output is fp32: (B, N) with fuse_gap, else (B, H', W', N); the Python
 //    wrapper casts it to the input dtype.
-//  * The measure terms, tails, loads and padding rule are shared with the
-//    large-map kernel nfp_large.cu, in nfp_measures.cuh.
+//  * The measure terms, tails, loads, padding rule and the warp's pair
+//    value (pair_value) are shared with the large-map kernels nfp_large.cu
+//    and nfp_strip.cu, in nfp_measures.cuh.
 //
 // C interface (bound with ctypes): nfp_small_forward returns the
 // cudaError_t of the launch; it never synchronises and allocates nothing.
@@ -41,30 +42,6 @@ namespace {
 using namespace nfp;
 
 constexpr int kThreads = 1024;
-
-// The finalized measure between two pixels; every lane returns it.
-template <typename T>
-__device__ float pair_value(const T* pc, const T* pn, const Args& a,
-                            int lane) {
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  if (a.measure == PEARSON) {
-    for_channels(pc, pn, a, lane, 32, [&](float c, float n) { s0 += c; s1 += n; });
-    const float mc = warp_sum(s0) / a.C;
-    const float mn = warp_sum(s1) / a.C;
-    s0 = s1 = 0.f;
-    for_channels(pc, pn, a, lane, 32, [&](float c, float n) {
-      const float cc = c - mc, nc = n - mn;
-      s0 += cc * nc; s1 += cc * cc; s2 += nc * nc;
-    });
-  } else {
-    for_channels(pc, pn, a, lane, 32,
-                 [&](float c, float n) { add_terms(a, c, n, s0, s1, s2); });
-  }
-  s0 = warp_sum(s0);
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  return apply_finalize(a, finish(a, s0, s1, s2));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

@@ -2,7 +2,9 @@
 
 Ported so far: ``nfp`` — Neighborhood Feature Pooling, with the small-map
 and large-map CUDA kernels (``nfp_cuda.py``) and their plain PyTorch
-version (``neighborhood.nfp_reference``); the int8 GEMM and conv of the
+version (``neighborhood.nfp_reference``); ``nfp_kernel``, the direct kernel
+entry (the JAX ``nfp_pallas``), which also reaches the strip kernel K3;
+the int8 GEMM and conv of the
 int8 serving tier (``int8_gemm.py``, ``int8_conv.py``) with their plain
 versions and the shared ``common.dequant_epilogue``.
 """
@@ -27,4 +29,10 @@ from .neighborhood import (  # noqa: F401
     num_neighbors,
     pad_spatial,
 )
-from .nfp_cuda import nfp, nfp_large_cuda, nfp_small_cuda  # noqa: F401
+from .nfp_cuda import (  # noqa: F401
+    nfp,
+    nfp_kernel,
+    nfp_large_cuda,
+    nfp_small_cuda,
+    nfp_strip_cuda,
+)

@@ -8,6 +8,9 @@ Counterpart of ``neighbour_feature_pooling_tpu/ops/nfp_pallas.py``.
 * ``nfp_large_cuda`` wraps ``csrc/nfp_large.cu`` (K2), the Hopper port of
   the large-map TPU kernel ``_nfp_kernel_chw`` (any map size, stride 1, the
   separable measures of ``measures.SEPARABLE``, optional fused GAP).
+* ``nfp_strip_cuda`` wraps ``csrc/nfp_strip.cu`` (K3), the Hopper port of
+  the strip-mined NHWC TPU kernel ``_nfp_kernel`` (any map size, stride 1,
+  every stat-free measure, ``pearson`` included, optional fused GAP).
 * On a CPU tensor each wrapper runs the plain version,
   ``neighborhood.nfp_reference``; on a CUDA tensor it launches its kernel
   or raises.
@@ -16,6 +19,10 @@ Counterpart of ``neighbour_feature_pooling_tpu/ops/nfp_pallas.py``.
   Pallas kernel; a configuration the JAX package sends to its XLA oracle
   goes to ``nfp_reference`` on either device; a CPU input runs
   ``nfp_reference``.
+* ``nfp_kernel`` is the direct kernel entry, the counterpart of the JAX
+  ``nfp_pallas``: it sends every stat-free configuration to a kernel, as
+  ``nfp_pallas`` picks its body (``_kernel_route``), and is the only path
+  that reaches K3.
 
 There is no fallback: a CUDA input a kernel should take either launches it
 or raises. Gradients through the kernels come with the training slice (an
@@ -34,7 +41,8 @@ from . import _build
 from .measures import get_measure, get_separable
 from .neighborhood import PAD_MODES, nfp_output_size, nfp_reference, num_neighbors
 
-__all__ = ["nfp", "nfp_small_cuda", "nfp_large_cuda", "kernel_supported"]
+__all__ = ["nfp", "nfp_kernel", "nfp_small_cuda", "nfp_large_cuda", "nfp_strip_cuda",
+           "kernel_supported"]
 
 #: dispatch thresholds of the JAX ``nfp`` (nfp_pallas.py:433-439), kept so
 #: both packages route every configuration the same way; they were chosen
@@ -49,6 +57,9 @@ _MEASURE_IDS = {name: i for i, name in enumerate((
     "chisquared1", "chisquared2", "gfc", "pearson", "jeffrey", "squaredchord",
     "smith", "scs"))}
 _FINALIZE_IDS = {"neg_if_sim": 0, "neg_if_dist": 1, "one_minus_if_dist": 2}
+#: kernels that tile the positions across blocks and take a partial-sum
+#: buffer for the fused GAP
+_TILED = ("nfp_large", "nfp_strip")
 
 
 def kernel_supported(measure: str, stride: int) -> bool:
@@ -61,7 +72,7 @@ def _library_fn(name: str):
     """``<name>_forward`` of ``csrc/<name>.cu`` with its ctypes signature."""
     lib = _build.load_library(name)
     fn = getattr(lib, f"{name}_forward")
-    n_ptrs = 3 if name == "nfp_large" else 2  # K2 also takes its partials
+    n_ptrs = 3 if name in _TILED else 2  # K2 and K3 also take their partials
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 16
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -69,8 +80,8 @@ def _library_fn(name: str):
 
 
 @functools.lru_cache(maxsize=None)
-def _large_tile_positions() -> int:
-    fn = _build.load_library("nfp_large").nfp_large_tile_positions
+def _tile_positions(name: str) -> int:
+    fn = getattr(_build.load_library(name), f"{name}_tile_positions")
     fn.restype = ctypes.c_int
     return fn()
 
@@ -112,8 +123,8 @@ def _launch(name, x, radius, m, *, similarity, p, eps, q_scs, padding,
     if b == 0:  # an empty grid is not a valid launch
         return out.to(x.dtype)
     ptrs = [x.data_ptr(), out.data_ptr()]
-    if name == "nfp_large":
-        n_tiles = -(-h_out * w_out // _large_tile_positions())
+    if name in _TILED:
+        n_tiles = -(-h_out * w_out // _tile_positions(name))
         partial = (torch.empty((b, n_tiles, n), dtype=torch.float32, device=x.device)
                    if fuse_gap else None)
         ptrs.append(None if partial is None else partial.data_ptr())
@@ -230,6 +241,52 @@ def nfp_large_cuda(
 nfp_large_cuda.launches = 0
 
 
+def nfp_strip_cuda(
+    x: torch.Tensor,
+    radius: int = 1,
+    measure: str = "cosine",
+    *,
+    similarity: bool = True,
+    p: float = 1.0,
+    eps: float = 1e-6,
+    q_scs: float = 1e-6,
+    padding: int = 0,
+    dilation: int = 1,
+    padding_mode: str = "reflect",
+    fuse_gap: bool = False,
+) -> torch.Tensor:
+    """Large-map NFP(+GAP) on an NHWC map, stride 1, for every stat-free
+    measure (K3, ``csrc/nfp_strip.cu``).
+
+    Returns ``(B, N)`` with ``fuse_gap``, else ``(B, H', W', N)``, in the
+    input dtype. A CUDA input must be a contiguous fp32/bf16 NHWC tensor;
+    any map size and channel count is taken. ``mahalanobis`` raises on
+    either device, as the TPU body does: it needs per-sample statistics,
+    which only the plain version computes. ``attention`` runs the ``dot``
+    kernel, then a softmax over the neighbours, then the pooling.
+    ``nfp_strip_cuda.launches`` counts kernel launches (the fused GAP's
+    reduction pass belongs to its launch).
+    """
+    kw = dict(p=p, eps=eps, q_scs=q_scs, padding=padding, dilation=dilation,
+              padding_mode=padding_mode)
+    m = get_measure(measure)
+    if m.name not in _MEASURE_IDS and not m.needs_softmax_over_neighbors:
+        raise ValueError(f"the NFP kernels take the stat-free measures, not {m.name!r}")
+    if x.device.type == "cpu":
+        return nfp_reference(x, radius, measure, similarity=similarity,
+                             fuse_gap=fuse_gap, **kw)
+    if m.needs_softmax_over_neighbors:
+        return _attention(nfp_strip_cuda, x, radius, m, similarity=similarity,
+                          fuse_gap=fuse_gap, **kw)
+    out = _launch("nfp_strip", x, radius, m, similarity=similarity,
+                  fuse_gap=fuse_gap, **kw)
+    nfp_strip_cuda.launches += 1
+    return out
+
+
+nfp_strip_cuda.launches = 0
+
+
 def _route(shape, radius, measure, stride, padding, dilation, data_format,
            fuse_gap) -> str:
     """Where the JAX ``nfp`` sends a configuration (``_forward_value``):
@@ -284,3 +341,72 @@ def nfp(
     if not fuse_gap and data_format == "NCHW":
         out = out.permute(0, 3, 1, 2)
     return out
+
+
+def _kernel_route(shape, radius, measure, padding, dilation, chw_body="auto") -> str:
+    """Which body the JAX ``nfp_pallas`` runs a configuration through
+    (nfp_pallas.py:263-362): ``"k1"`` for maps of at most 256 output
+    positions, ``"k2"`` for larger maps with a separable measure, ``"k3"``
+    for the rest. ``attention`` takes the route of ``dot``. Raises
+    ``ValueError`` where ``nfp_pallas`` does: ``mahalanobis``, an empty
+    output map, and an unknown ``chw_body`` on the K2 branch only."""
+    m = get_measure(measure)
+    if m.needs_softmax_over_neighbors:
+        m = get_measure("dot")
+    if m.name not in _MEASURE_IDS:
+        raise ValueError(f"the NFP kernels take the stat-free measures, not {m.name!r}")
+    _, h, w, _ = shape
+    h_out = nfp_output_size(h, radius, 1, padding, dilation)
+    w_out = nfp_output_size(w, radius, 1, padding, dilation)
+    if h_out < 1 or w_out < 1:
+        raise ValueError(
+            f"NFP output size {h_out}x{w_out} invalid for input {h}x{w}, "
+            f"R={radius}, padding={padding}, dilation={dilation}")
+    if h_out * w_out <= _MAX_POSITIONS:
+        return "k1"
+    if get_separable(m.name) is not None:
+        if chw_body not in ("auto", "fori", "vec"):
+            raise ValueError(f"unknown chw_body {chw_body!r}")
+        return "k2"
+    return "k3"
+
+
+_ROUTE_WRAPPERS = {"k1": nfp_small_cuda, "k2": nfp_large_cuda, "k3": nfp_strip_cuda}
+
+
+def nfp_kernel(
+    x: torch.Tensor,
+    radius: int = 1,
+    measure: str = "cosine",
+    *,
+    similarity: bool = True,
+    p: float = 1.0,
+    eps: float = 1e-6,
+    q_scs: float = 1e-6,
+    padding: int = 0,
+    dilation: int = 1,
+    padding_mode: str = "reflect",
+    fuse_gap: bool = False,
+    chw_body: str = "auto",
+) -> torch.Tensor:
+    """The NFP(+GAP) kernel on an NHWC map, stride 1: the counterpart of
+    the JAX ``nfp_pallas`` (same arguments, without the TPU's
+    ``interpret``).
+
+    Routes as ``nfp_pallas`` picks its body (``_kernel_route``): K1 for
+    maps of at most 256 output positions, K2 for larger maps with a
+    separable measure at any channel count, K3 for the rest (``pearson``).
+    ``attention`` runs the ``dot`` kernel of its route, then a softmax over
+    the neighbours outside it; ``mahalanobis`` raises ``ValueError``.
+    ``chw_body`` takes the JAX values ``"auto"``, ``"fori"`` and ``"vec"``
+    and is checked where ``nfp_pallas`` checks it, on the K2 branch only.
+    On the card all three run K2: the split between a per-channel loop and
+    whole-C slices is a choice of the TPU's lane layout, which K2 does not
+    have. On a CPU tensor the plain version runs.
+    """
+    route = _kernel_route(tuple(x.shape), radius, measure, padding, dilation, chw_body)
+    kw = dict(similarity=similarity, p=p, eps=eps, q_scs=q_scs, padding=padding,
+              dilation=dilation, padding_mode=padding_mode, fuse_gap=fuse_gap)
+    if x.device.type != "cuda":
+        return nfp_reference(x, radius, measure, **kw)
+    return _ROUTE_WRAPPERS[route](x.contiguous(), radius, measure, **kw)

@@ -257,21 +257,24 @@ def test_separable_table_matches_jax(name):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port, found by ``pkgutil.walk_packages`` so a new
+    one cannot slip past, and ``chip_smoke``."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "import chip_smoke\n"
-        "import neighbour_feature_pooling_tpu_torch.serve\n"
-        "import neighbour_feature_pooling_tpu_torch.ops\n"
-        "import neighbour_feature_pooling_tpu_torch.models.from_jax\n"
-        "import neighbour_feature_pooling_tpu_torch.models.backbones.mobilenetv3\n"
-        "import neighbour_feature_pooling_tpu_torch.quant\n"
-        "import neighbour_feature_pooling_tpu_torch.ops.int8_gemm\n"
-        "import neighbour_feature_pooling_tpu_torch.ops.int8_conv\n"
+        "import neighbour_feature_pooling_tpu_torch as port\n"
+        "names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "print(len(names), 'modules:', ' '.join(names))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'neighbour_feature_pooling_tpu'"
         " or m.startswith('neighbour_feature_pooling_tpu.'))\n"
-        "print(bad)\n"
+        "print('imported from JAX:', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    for name in ("serve", "quant", "ops.int8_conv", "models.backbones.mobilenetv3",
+                 "tools.bench_nfp_kernel", "tools.sweep_nfp_kernel"):
+        assert f"neighbour_feature_pooling_tpu_torch.{name}" in proc.stdout.split(), proc.stdout

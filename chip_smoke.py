@@ -27,7 +27,10 @@ Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
 7. int8 kernels: K4 (``int8_gemm``) and K5 (``int8_conv``) against their
    plain versions on the card, bit for bit (``torch.equal``), at every
    ResNet18 shape of int8 serving at B=32 and some at B=128, on ragged
-   shapes, in the s32, fused fp32 and s8 + ReLU forms; times beside the
+   shapes that reach both tile sizes and the 16-byte, 4-byte and byte
+   paths of A, in the s32, fused fp32 and s8 + ReLU forms, with the weight
+   packed once (as the model does; what the times are of) and packed in
+   the call; times beside the
    bound (bytes at 3.35 TB/s or int8 operations at 1,979 TOPS), K4 beside
    ``torch._int_mm`` (cuBLASLt s8, a yardstick the port never calls), K5
    beside a cuDNN fp32 conv with TF32 off (context only);
@@ -36,8 +39,8 @@ Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
    batch and matches a CPU int8 ``Predictor``; then ``calibrate`` on 64
    images, the same again with 8 of the K5 launches emitting s8, against
    a CPU ``Predictor`` given the card's scales and chains; forward times
-   at B=32 and B=128, dynamic and calibrated, beside fp32, and a
-   torch.profiler split;
+   at B=32 and B=128, dynamic and calibrated, beside fp32 and the host's
+   time to enqueue a forward, and a torch.profiler split;
 9. kernel entry: the port's bench tool
    (``tools/bench_nfp_kernel.py``) in-process through ``ops.nfp_kernel``,
    the counterpart of the JAX ``nfp_pallas``, at its four shapes, fused and
@@ -401,9 +404,17 @@ def serve_resnet18(Predictor, launches):
             ms = median_ms(lambda: model(x), runs=20)
             backbone_ms = median_ms(lambda: model.backbone(x), runs=20)
             head_ms = median_ms(lambda: model.fc(model.pool(fmap)), runs=20)
+            busy, n_kernels, by_name = device_profile(lambda: model(x))
         print(f"serve resnet18: forward B={b} fp32 {ms:.3f} ms/batch = {b / ms * 1e3:.1f} img/s; "
               f"backbone {backbone_ms:.3f} ms, NFP head + fc {head_ms:.3f} ms "
               f"(median of 20, CUDA events)")
+        if not n_kernels:
+            print(f"serve resnet18: forward B={b} torch.profiler recorded no device events: "
+                  f"device time not measured")
+            continue
+        print(f"serve resnet18: forward B={b} torch.profiler: {n_kernels:.0f} kernels, "
+              f"{busy:.3f} ms of device time per forward ({1 - busy / ms:.1%} of the "
+              f"{ms:.3f} ms forward idle); most time: " + top3(by_name))
     return counts
 
 
@@ -488,7 +499,8 @@ K4_MAIN = "layer2 downsample B=32 fp32"
 K4_SHAPES = [("layer2 downsample B=32", 25088, 64, 128), ("layer3 downsample B=32", 6272, 128, 256),
              ("layer4 downsample B=32", 1568, 256, 512), ("layer2 downsample B=128", 100352, 64, 128),
              ("layer3 downsample B=128", 25088, 128, 256), ("layer4 downsample B=128", 6272, 256, 512),
-             ("ragged M, K, N", 1000, 100, 70), ("ragged, tiny", 37, 300, 9)]
+             ("ragged M, K, N", 1000, 100, 70), ("ragged, tiny", 37, 300, 9),
+             ("ragged, K 37 (byte path)", 200, 37, 24)]
 #: output forms: (label, with scale and bias, out dtype, relu)
 INT8_FORMS = [("s32", False, torch.int32, False), ("fp32", True, torch.float32, False),
               ("s8 relu", True, torch.int8, True)]
@@ -506,17 +518,23 @@ K5_SHAPES = [
     ("layer1 3x3 B=128", (128, 56, 56, 64), (3, 3, 64), ((1, 1), (1, 1)), (1, 1)),
     ("5x5 asymmetric pads, Cin 24, Cout 40", (3, 29, 23, 24), (5, 5, 40), ((2, 1), (0, 3)), (2, 1)),
     ("3x3 SAME, Cin 16, Cout 70, odd map", (2, 15, 13, 16), (3, 3, 70), "SAME", (1, 1)),
+    ("3x3 Cin 16 (K 144), M 1210", (10, 11, 11, 16), (3, 3, 32), ((1, 1), (1, 1)), (1, 1)),
+    ("3x3 Cin 16, M 50000, Cout 70 (large tile)", (5, 100, 100, 16), (3, 3, 70), "SAME", (1, 1)),
+    ("5x5/2 Cin 3, asymmetric pads", (3, 37, 41, 3), (5, 5, 24), ((2, 1), (0, 3)), (2, 2)),
+    ("3x3 Cin 5 (byte path)", (2, 17, 19, 5), (3, 3, 40), "SAME", (1, 1)),
 ]
 #: the forms each case runs in: every form where the main path emits it or
 #: the case is ragged, else the main path's fp32 form
-K4_FORMS = {"layer2 downsample B=32": "all", "ragged M, K, N": "all", "ragged, tiny": "all"}
-K5_FORMS = {"layer1 3x3 B=32": "all", "layer2.0 3x3/2 B=32": "all", "layer4 3x3 B=32": "all",
-            "stem 7x7/2 B=32": "all", "5x5 asymmetric pads, Cin 24, Cout 40": "all",
-            "3x3 SAME, Cin 16, Cout 70, odd map": "all"}
+K4_FP32_ONLY = {"layer3 downsample B=32", "layer2 downsample B=128", "layer3 downsample B=128",
+                "layer4 downsample B=128"}
+K5_FP32_ONLY = {"layer2 3x3 B=32", "layer3.0 3x3/2 B=32", "layer3 3x3 B=32",
+                "layer4.0 3x3/2 B=32", "layer1 3x3 B=128"}
+#: the K5 weights whose pack in the call is timed beside the pack once
+K5_PACK_TIMED = {"layer1 3x3 B=32", "layer4 3x3 B=32"}
 
 
-def _forms(table, label):
-    return INT8_FORMS if table.get(label) == "all" else INT8_FORMS[1:2]
+def _forms(fp32_only, label):
+    return INT8_FORMS[1:2] if label in fp32_only else INT8_FORMS
 
 
 def _int_mm_ms(a, b):
@@ -532,9 +550,12 @@ def _int_mm_ms(a, b):
     return None, err
 
 
-def check_int8_kernels(int8_gemm, int8_gemm_reference, int8_conv2d, int8_conv2d_reference):
+def check_int8_kernels(int8_gemm, int8_gemm_reference, pack_weight,
+                       int8_conv2d, int8_conv2d_reference, pack_conv_weight):
     """K4 and K5 against their plain versions on the card, bit for bit,
-    with times and bounds; returns each kernel's main-path row."""
+    with times and bounds; returns each kernel's main-path row. The weight
+    is packed once per case, as the int8 modules pack theirs; each case is
+    also run once with the pack in the call."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(5)
 
@@ -547,10 +568,12 @@ def check_int8_kernels(int8_gemm, int8_gemm_reference, int8_conv2d, int8_conv2d_
         return dict(scale=torch.rand(n, generator=gen, device="cuda") * 5e-3 + 1e-4,
                     bias=torch.rand(n, generator=gen, device="cuda") * 4 - 2)
 
-    def check(label, kernel, plain, n_ops, in_bytes, out_numel):
+    def check(label, kernel, packing, plain, n_ops, in_bytes, out_numel):
         out = kernel()
         if not torch.equal(out, kernel()):
             raise AssertionError(f"{label}: two launches on the same input differ")
+        if not torch.equal(out, packing()):
+            raise AssertionError(f"{label}: packing the weight in the call changes the result")
         torch.cuda.synchronize()
         ref = plain()
         if out.dtype != ref.dtype or out.shape != ref.shape or not torch.equal(out, ref):
@@ -570,17 +593,18 @@ def check_int8_kernels(int8_gemm, int8_gemm_reference, int8_conv2d, int8_conv2d_
     print("kernels: int8_gemm (K4) against int8_gemm_reference on the card (torch.equal)")
     for label, m, k, n in K4_SHAPES:
         a, b = s8((m, k)), s8((k, n))
-        for form, with_scale, out_dtype, relu in _forms(K4_FORMS, label):
+        bp = pack_weight(b)
+        for form, with_scale, out_dtype, relu in _forms(K4_FP32_ONLY, label):
             kw = dict(epilogue(n, with_scale), relu=relu)
             if with_scale:
                 kw["out_dtype"] = out_dtype
             in_bytes = a.numel() + b.numel() + 8 * n * with_scale
             row = check(f"{label} {form} ({m},{k})x({k},{n})",
-                        lambda: int8_gemm(a, b, **kw), lambda: int8_gemm_reference(a, b, **kw),
-                        2 * m * n * k, in_bytes, m * n)
+                        lambda: int8_gemm(a, b, b_packed=bp, **kw), lambda: int8_gemm(a, b, **kw),
+                        lambda: int8_gemm_reference(a, b, **kw), 2 * m * n * k, in_bytes, m * n)
             if f"{label} {form}" == K4_MAIN:
                 lib_ms, why = _int_mm_ms(a, b)
-                s32_ms = median_ms(lambda: int8_gemm(a, b))
+                s32_ms = median_ms(lambda: int8_gemm(a, b, b_packed=bp))
                 print(f"  {label}: torch._int_mm (cuBLASLt s8 -> s32, no epilogue) "
                       + (f"{lib_ms * 1e3:.2f} us" if lib_ms is not None else f"refused: {why}")
                       + f"; K4 in its s32 form {s32_ms * 1e3:.2f} us")
@@ -588,19 +612,25 @@ def check_int8_kernels(int8_gemm, int8_gemm_reference, int8_conv2d, int8_conv2d_
     print("kernels: int8_conv (K5) against int8_conv2d_reference on the card (torch.equal)")
     for label, xshape, (kh, kw_, cout), padding, strides in K5_SHAPES:
         x, w = s8(xshape), s8((kh, kw_, xshape[3], cout))
+        wp = pack_conv_weight(w)
         ho = wo = None
-        for form, with_scale, out_dtype, relu in _forms(K5_FORMS, label):
+        for form, with_scale, out_dtype, relu in _forms(K5_FP32_ONLY, label):
             kw = dict(epilogue(cout, with_scale), relu=relu, padding=padding, strides=strides)
             if with_scale:
                 kw["out_dtype"] = out_dtype
-            out = int8_conv2d(x, w, **kw)
+            out = int8_conv2d(x, w, w_packed=wp, **kw)
             _, ho, wo, _ = out.shape
             in_bytes = x.numel() + w.numel() + 8 * cout * with_scale
             row = check(f"{label} {form} {tuple(xshape)}*({kh},{kw_},{xshape[3]},{cout})/{strides[0]}",
-                        lambda: int8_conv2d(x, w, **kw), lambda: int8_conv2d_reference(x, w, **kw),
+                        lambda: int8_conv2d(x, w, w_packed=wp, **kw), lambda: int8_conv2d(x, w, **kw),
+                        lambda: int8_conv2d_reference(x, w, **kw),
                         2 * out.shape[0] * ho * wo * cout * kh * kw_ * xshape[3], in_bytes, out.numel())
             if f"{label} {form}" == K5_MAIN:
                 rows["int8_conv"] = dict(row, library_ms=None)
+            if label in K5_PACK_TIMED and form == "fp32":
+                pack_ms = median_ms(lambda: int8_conv2d(x, w, **kw))
+                print(f"  {label}: with the {tuple(w.shape)} weight packed in the call "
+                      f"{pack_ms * 1e3:.2f} us, packed once {row['ms'] * 1e3:.2f} us")
         if xshape[0] == 32 and padding != "SAME":
             xf = x.float().permute(0, 3, 1, 2)  # channels_last NCHW, as the fp32 model
             wf = w.float().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -612,12 +642,24 @@ def check_int8_kernels(int8_gemm, int8_gemm_reference, int8_conv2d, int8_conv2d_
 
 
 def forward_ms(model, x, tag):
-    """Forward ms at the batch of ``x`` (median of 20, CUDA events)."""
+    """Forward ms at the batch of ``x`` (median of 20, CUDA events), beside
+    the host's time to enqueue one forward (least of 5 runs of 3 forwards,
+    few enough kernels to fit the launch queue, so the host never waits
+    for the device inside a run): where that is the larger, the host sets
+    the rate and the device idles."""
     with torch.inference_mode():
         ms = median_ms(lambda: model(x), runs=20)
+        host_ms = float("inf")
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                model(x)
+            host_ms = min(host_ms, (time.perf_counter() - t0) / 3 * 1e3)
+        torch.cuda.synchronize()
     b = x.shape[0]
     print(f"{tag}: forward B={b} {ms:.3f} ms/batch = {b / ms * 1e3:.1f} img/s "
-          f"(median of 20, CUDA events)")
+          f"(median of 20, CUDA events); host time to enqueue it {host_ms:.3f} ms")
     return ms
 
 
@@ -729,8 +771,10 @@ def main():
     from neighbour_feature_pooling_tpu_torch.ops.neighborhood import (
         nfp_output_size, nfp_reference, num_neighbors)
     from neighbour_feature_pooling_tpu_torch.models.heads import gap2d
-    from neighbour_feature_pooling_tpu_torch.ops.int8_conv import int8_conv2d, int8_conv2d_reference
-    from neighbour_feature_pooling_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_reference
+    from neighbour_feature_pooling_tpu_torch.ops.int8_conv import (
+        int8_conv2d, int8_conv2d_reference, pack_conv_weight)
+    from neighbour_feature_pooling_tpu_torch.ops.int8_gemm import (
+        int8_gemm, int8_gemm_reference, pack_weight)
     from neighbour_feature_pooling_tpu_torch.ops.nfp_cuda import (
         nfp, nfp_kernel, nfp_large_cuda, nfp_small_cuda, nfp_strip_cuda)
     from neighbour_feature_pooling_tpu_torch.tools import bench_nfp_kernel
@@ -768,8 +812,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"serve: torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
-    rows.update(check_int8_kernels(int8_gemm, int8_gemm_reference, int8_conv2d,
-                                   int8_conv2d_reference))
+    rows.update(check_int8_kernels(int8_gemm, int8_gemm_reference, pack_weight,
+                                   int8_conv2d, int8_conv2d_reference, pack_conv_weight))
     launches = Launches(nfp_small=nfp_small_cuda, nfp_large=nfp_large_cuda,
                         nfp_strip=nfp_strip_cuda, int8_gemm=int8_gemm, int8_conv=int8_conv2d)
     per_path = [serve_resnet18(Predictor, launches),

@@ -29,29 +29,18 @@ struct Epilogue {
   int relu;
 };
 
+// bias and relu are the block's copies of e.bias != nullptr and e.relu,
+// read once: the tile's 64 values a thread share them.
 __device__ __forceinline__ float dequant(int acc, float scale, float bias,
-                                         const Epilogue& e) {
+                                         bool has_bias, bool relu) {
   float y = __fmul_rn(__int2float_rn(acc), scale);
-  if (e.bias != nullptr) y = __fadd_rn(y, bias);
-  if (e.relu) y = fmaxf(y, 0.f);
+  if (has_bias) y = __fadd_rn(y, bias);
+  if (relu) y = fmaxf(y, 0.f);
   return y;
 }
 
-// out[idx] = the epilogue of acc, in the output type of e.kind.
-__device__ __forceinline__ void store_out(const Epilogue& e, void* out,
-                                          long long idx, int acc, float scale,
-                                          float bias) {
-  if (e.kind == OUT_S32) {
-    static_cast<int*>(out)[idx] = acc;
-    return;
-  }
-  const float y = dequant(acc, scale, bias, e);
-  if (e.kind == OUT_F32) {
-    static_cast<float*>(out)[idx] = y;
-  } else {
-    static_cast<int8_t*>(out)[idx] =
-        (int8_t)__float2int_rn(fminf(fmaxf(rintf(y), -127.f), 127.f));
-  }
+__device__ __forceinline__ int8_t requant(float y) {
+  return (int8_t)__float2int_rn(fminf(fmaxf(rintf(y), -127.f), 127.f));
 }
 
 }  // namespace int8k

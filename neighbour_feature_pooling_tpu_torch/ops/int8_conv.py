@@ -9,7 +9,9 @@ CPU tensor it runs the plain version, ``int8_conv2d_reference``; on a CUDA
 tensor it launches K5 or raises. K5 applies the stride and the zero
 padding in its index math, so the TPU kernel's flattened-row layout, host
 padding and space-to-depth rewrite (and their ``batch_tile`` / ``tcout``
-tiling arguments) have no counterpart.
+tiling arguments) have no counterpart. K5 reads the weight packed
+(``pack_conv_weight``), and an RGB input with a zero fourth channel, so
+that one pixel's tap is one aligned 4-byte word.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ import torch.nn.functional as F
 
 from . import _build
 from .common import dequant_epilogue
-from .int8_gemm import OUT_KINDS, cuda_operands, epilogue_operands, ptr
+from .int8_gemm import (OUT_KINDS, _tile_plan, a_mode, cuda_operands, epilogue_operands,
+                        check_packed, pack_weight, ptr, sm_count)
 
-__all__ = ["int8_conv2d", "int8_conv2d_reference"]
+__all__ = ["int8_conv2d", "int8_conv2d_reference", "pack_conv_weight"]
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
 
@@ -78,9 +81,23 @@ def _geometry(x: torch.Tensor, w: torch.Tensor, padding: Padding,
 @functools.lru_cache(maxsize=None)
 def _library_fn():
     fn = _build.load_library("int8_conv").int8_conv_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _kernel_cin(cin: int) -> int:
+    """The input channels K5 is given: an RGB image gets a zero fourth."""
+    return 4 if cin == 3 else cin
+
+
+def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """An HWIO s8 weight in the layout K5 reads: ``pack_weight`` of its
+    ``(kh·kw·Cin, Cout)`` view, a Cin of 3 first zero-padded to 4 (the
+    same sums: the fourth channel adds zeros). On any device."""
+    kh, kw, cin, cout = w.shape
+    w = F.pad(w, (0, 0, 0, _kernel_cin(cin) - cin))
+    return pack_weight(w.reshape(-1, cout))
 
 
 def int8_conv2d_reference(x: torch.Tensor, w: torch.Tensor, padding: Padding = "SAME",
@@ -108,7 +125,8 @@ def int8_conv2d(x: torch.Tensor, w: torch.Tensor, padding: Padding = "SAME",
                 scale: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
                 out_dtype: Optional[torch.dtype] = None,
-                relu: bool = False) -> torch.Tensor:
+                relu: bool = False,
+                w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``(B,H,W,Cin) s8 ⊛ (Kh,Kw,Cin,Cout) s8 → (B,Ho,Wo,Cout) s32``
     (K5, ``csrc/int8_conv.cu``).
 
@@ -117,8 +135,12 @@ def int8_conv2d(x: torch.Tensor, w: torch.Tensor, padding: Padding = "SAME",
     (per-Cout fp32) fuses the dequant epilogue as in ``int8_gemm``: the
     result is ``acc·scale + bias``, ReLU when ``relu``, in ``out_dtype``
     (fp32 by default; int8 requantizes). On a CUDA input the operands must
-    be contiguous and on one device. ``int8_conv2d.launches`` counts kernel
-    launches, ``int8_conv2d.s8_launches`` those that emit int8.
+    be contiguous and on one device. K5 reads ``pack_conv_weight(w)``: pass
+    it as ``w_packed`` when ``w`` is constant, else the CUDA path packs in
+    the call (two more torch ops per call); with Cin = 3 it also pads ``x``
+    to four channels (one more). On a CPU input ``w_packed`` is ignored.
+    ``int8_conv2d.launches`` counts kernel launches,
+    ``int8_conv2d.s8_launches`` those that emit int8.
     """
     pads, strides, ho, wo = _geometry(x, w, padding, strides)
     if x.device.type == "cpu":
@@ -128,17 +150,24 @@ def int8_conv2d(x: torch.Tensor, w: torch.Tensor, padding: Padding = "SAME",
     b, h, wdt, cin = x.shape
     kh, kw, _, cout = w.shape
     scale, bias, out_dtype = epilogue_operands(scale, bias, out_dtype, cout)
-    cuda_operands("int8_conv2d", x, w, scale, bias)
+    kcin = _kernel_cin(cin)
+    if w_packed is None:
+        w_packed = pack_conv_weight(w)
+    check_packed("int8_conv2d", w_packed, kh * kw * kcin, cout)
+    cuda_operands("int8_conv2d", x, w_packed, scale, bias)
+    if kcin != cin:
+        x = F.pad(x, (0, kcin - cin))
     out = torch.empty((b, ho, wo, cout), dtype=out_dtype, device=x.device)
     if out.numel() == 0:  # an empty grid is not a valid launch
         return out
-    vec = int(cin % 16 == 0 and x.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
         rc = _library_fn()(
-            x.data_ptr(), w.data_ptr(), ptr(scale), ptr(bias), out.data_ptr(),
-            b, h, wdt, cin, cout, kh, kw, strides[0], strides[1],
+            x.data_ptr(), w_packed.data_ptr(), ptr(scale), ptr(bias), out.data_ptr(),
+            b, h, wdt, kcin, cout, kh, kw, strides[0], strides[1],
             pads[0][0], pads[1][0], ho, wo, OUT_KINDS[out_dtype], int(bool(relu)),
-            vec, torch.cuda.current_stream().cuda_stream)
+            a_mode(kcin, x.data_ptr()),
+            _tile_plan(b * ho * wo, cout, kh * kw * kcin, sm_count(x.device)),
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8_conv kernel launch failed: cudaError_t {rc}")
     int8_conv2d.launches += 1

@@ -6,8 +6,11 @@ kernels ``_gemm_kernel`` / ``_gemm_kernel_fused``: ``(M, K) s8 × (K, N) s8
 → (M, N) s32``, or with ``scale`` the fused dequant epilogue
 (``common.dequant_epilogue``) in fp32 or requantized s8. On a CPU tensor it
 runs the plain version, ``int8_gemm_reference``; on a CUDA tensor it
-launches K4 or raises. Tile sizes are the kernel's own business: the JAX
-``tiles=`` argument and its v5e heuristic have no counterpart.
+launches K4 or raises. The operands keep the JAX layouts; the kernels read
+the weight in their own, ``pack_weight``'s, which a caller with a constant
+weight makes once and passes as ``b_packed``. The tile size is chosen here
+from the shape (``_tile_plan``): the JAX ``tiles=`` argument and its v5e
+heuristic have no counterpart.
 """
 
 from __future__ import annotations
@@ -17,11 +20,12 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .common import dequant_epilogue
 
-__all__ = ["int8_gemm", "int8_gemm_reference"]
+__all__ = ["int8_gemm", "int8_gemm_reference", "pack_weight"]
 
 # keep in sync with OutKind in csrc/int8_epilogue.cuh
 OUT_KINDS = {torch.int32: 0, torch.float32: 1, torch.int8: 2}
@@ -69,10 +73,54 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def pack_weight(w: torch.Tensor) -> torch.Tensor:
+    """A ``(K, N)`` s8 weight (a conv's HWIO one viewed as ``(kh·kw·Cin,
+    Cout)``) in the layout K4 and K5 read: ``(N, Kp)``, k contiguous, ``Kp``
+    = K rounded up to 16, zero filled. On any device."""
+    if w.dtype != torch.int8 or w.ndim != 2:
+        raise TypeError(f"pack_weight takes a 2-D int8 weight, got {w.dtype} {tuple(w.shape)}")
+    return F.pad(w.t(), (0, -w.shape[0] % 16)).contiguous()
+
+
+def check_packed(kernel: str, packed: torch.Tensor, k: int, n: int) -> None:
+    """Raise unless ``packed`` has the type and shape of a packed
+    ``(k, n)`` weight."""
+    if packed.dtype != torch.int8 or tuple(packed.shape) != (n, k + -k % 16):
+        raise ValueError(f"{kernel}: packed weight {packed.dtype} {tuple(packed.shape)} does "
+                         f"not belong to a ({k}, {n}) weight (pack_weight gives "
+                         f"({n}, {k + -k % 16}) int8)")
+
+
+def a_mode(run: int, address: int) -> int:
+    """How the kernels move A to shared memory (``AMode`` in
+    csrc/int8_mma.cuh): 2 = 16-byte chunks, 1 = 4-byte words, 0 = bytes.
+    ``run`` is the length of the contiguous runs of k in A (K for a GEMM,
+    Cin for a conv), ``address`` its base address."""
+    for mode, size in ((2, 16), (1, 4)):
+        if run % size == 0 and address % size == 0:
+            return mode
+    return 0
+
+
+def _tile_plan(m: int, n: int, k: int, sms: int = 132) -> int:
+    """The tile id of an ``(m, k) × (k, n)`` product: 0 = 128×64 tiles, 1 =
+    64×64 when the 128×64 grid has fewer than two blocks per SM (at B=32
+    ResNet18's layer3, layer4 and the two small downsample GEMMs). ``sms``
+    is the card's SM count (an H100's by default; the wrappers pass their
+    device's). ``k`` does not enter: there is no split over K."""
+    blocks = -(-m // 128) * -(-n // 64)
+    return int(blocks < 2 * sms)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _library_fn():
     fn = _build.load_library("int8_gemm").int8_gemm_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -96,15 +144,18 @@ def int8_gemm(a: torch.Tensor, b: torch.Tensor,
               scale: Optional[torch.Tensor] = None,
               bias: Optional[torch.Tensor] = None,
               out_dtype: Optional[torch.dtype] = None,
-              relu: bool = False) -> torch.Tensor:
+              relu: bool = False,
+              b_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``(M, K) int8 × (K, N) int8 → (M, N) int32`` (K4, ``csrc/int8_gemm.cu``).
 
     ``scale`` (per-N fp32, typically ``act_scale · weight_scales``) fuses
     the dequant epilogue: the result is ``acc·scale + bias``, then ReLU
     when ``relu``, in ``out_dtype`` (fp32 by default; int8 requantizes
     with a saturating round). Any M, N and K. On a CUDA input the operands
-    must be contiguous and on one device. ``int8_gemm.launches`` counts
-    kernel launches.
+    must be contiguous and on one device. K4 reads ``pack_weight(b)``:
+    pass it as ``b_packed`` when ``b`` is constant, else the CUDA path
+    packs in the call (one more torch op per call). On a CPU input
+    ``b_packed`` is ignored. ``int8_gemm.launches`` counts kernel launches.
     """
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"int8_gemm needs int8 operands, got {a.dtype}/{b.dtype}")
@@ -119,15 +170,18 @@ def int8_gemm(a: torch.Tensor, b: torch.Tensor,
     if a.device.type != "cuda":
         raise ValueError(f"int8_gemm takes a CUDA or CPU tensor, got {a.device}")
     scale, bias, out_dtype = epilogue_operands(scale, bias, out_dtype, n)
-    cuda_operands("int8_gemm", a, b, scale, bias)
+    if b_packed is None:
+        b_packed = pack_weight(b)
+    check_packed("int8_gemm", b_packed, k, n)
+    cuda_operands("int8_gemm", a, b_packed, scale, bias)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:  # an empty grid is not a valid launch
         return out
-    vec = int(k % 16 == 0 and a.data_ptr() % 16 == 0)
     with torch.cuda.device(a.device):
         rc = _library_fn()(
-            a.data_ptr(), b.data_ptr(), ptr(scale), ptr(bias), out.data_ptr(),
-            m, n, k, OUT_KINDS[out_dtype], int(bool(relu)), vec,
+            a.data_ptr(), b_packed.data_ptr(), ptr(scale), ptr(bias), out.data_ptr(),
+            m, n, k, OUT_KINDS[out_dtype], int(bool(relu)), a_mode(k, a.data_ptr()),
+            _tile_plan(m, n, k, sm_count(a.device)),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8_gemm kernel launch failed: cudaError_t {rc}")

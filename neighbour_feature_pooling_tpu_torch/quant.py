@@ -40,8 +40,8 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from .ops.int8_conv import int8_conv2d
-from .ops.int8_gemm import int8_gemm
+from .ops.int8_conv import int8_conv2d, pack_conv_weight
+from .ops.int8_gemm import int8_gemm, pack_weight
 
 __all__ = ["QuantConfig", "Int8Conv2d", "Int8Linear", "build_bn_folding",
            "build_int8_chains", "calibrate_act_scales", "prequantize_weights",
@@ -157,6 +157,11 @@ def _buffer(value, device) -> Optional[torch.Tensor]:
     return torch.as_tensor(value, dtype=torch.float32).to(device)
 
 
+def _repack(module: nn.Module, incompatible_keys) -> None:
+    """After ``load_state_dict``: the packed weight follows the loaded one."""
+    module.wq_packed = module._pack()
+
+
 class Int8Conv2d(nn.Module):
     """int8 replacement of an eligible ``nn.Conv2d`` (JAX ``_conv_int8``).
 
@@ -166,7 +171,9 @@ class Int8Conv2d(nn.Module):
     conv's own bias, the folded BN affine (``mult``, ``shift``), the
     calibrated activation scale and, for a chained producer, the
     consumer's scale. With a calibrated scale the epilogue vectors are
-    computed once, with the ops and op order of the JAX package.
+    computed once, with the ops and op order of the JAX package. The
+    weight in the kernels' layout (``wq_packed``) is made once here too, in
+    a buffer that ``state_dict()`` leaves out.
     """
 
     def __init__(self, conv: nn.Conv2d, wq: torch.Tensor, ws: torch.Tensor,
@@ -187,6 +194,8 @@ class Int8Conv2d(nn.Module):
         #: 1×1 with no border: subsample, then a GEMM (JAX quant.py:371-386)
         self.gemm = ksize == (1, 1) and zero_pad
         self.register_buffer("wq", wq.to(dev).permute(2, 3, 1, 0).contiguous())
+        self.register_buffer("wq_packed", self._pack(), persistent=False)
+        self.register_load_state_dict_post_hook(_repack)
         self.register_buffer("ws", ws.to(dev, torch.float32))
         self.register_buffer("bias", None if conv.bias is None
                              else conv.bias.detach().float().clone())
@@ -200,6 +209,11 @@ class Int8Conv2d(nn.Module):
                                else (None, None))
         self.register_buffer("scale_vec", scale_vec)
         self.register_buffer("bias_vec", bias_vec)
+
+    def _pack(self) -> torch.Tensor:
+        if self.gemm:
+            return pack_weight(self.wq.view(self.in_channels, self.out_channels))
+        return pack_conv_weight(self.wq)
 
     def _affine(self, xs: torch.Tensor):
         """The epilogue's ``(scale, bias)`` vectors, op for op as the JAX
@@ -227,11 +241,12 @@ class Int8Conv2d(nn.Module):
             sh, sw = self.stride
             xsub = xh[:, ::sh, ::sw, :]
             y = int8_gemm(xsub.reshape(-1, self.in_channels),
-                          self.wq.view(self.in_channels, self.out_channels), **kw)
+                          self.wq.view(self.in_channels, self.out_channels),
+                          b_packed=self.wq_packed, **kw)
             y = y.view(*xsub.shape[:3], self.out_channels)
         else:
             y = int8_conv2d(xh.contiguous(), self.wq, padding=self.pads,
-                            strides=self.stride, **kw)
+                            strides=self.stride, w_packed=self.wq_packed, **kw)
         return y.permute(0, 3, 1, 2)
 
 
@@ -245,15 +260,20 @@ class Int8Linear(nn.Module):
         dev = linear.weight.device
         self.in_features, self.out_features = linear.in_features, linear.out_features
         self.register_buffer("wq", wq.to(dev).t().contiguous())  # (in, out)
+        self.register_buffer("wq_packed", self._pack(), persistent=False)
+        self.register_load_state_dict_post_hook(_repack)
         self.register_buffer("ws", ws.to(dev, torch.float32))
         self.register_buffer("bias", None if linear.bias is None
                              else linear.bias.detach().float().clone())
         self.register_buffer("act_scale", _buffer(act_scale, dev))
 
+    def _pack(self) -> torch.Tensor:
+        return pack_weight(self.wq)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xq, xs = _quantize_act(x, self.act_scale)
-        y = int8_gemm(xq.reshape(-1, self.in_features), self.wq,
-                      scale=xs * self.ws, bias=self.bias, out_dtype=torch.float32)
+        y = int8_gemm(xq.reshape(-1, self.in_features), self.wq, scale=xs * self.ws,
+                      bias=self.bias, out_dtype=torch.float32, b_packed=self.wq_packed)
         return y.reshape(*x.shape[:-1], self.out_features)
 
 

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from neighbour_feature_pooling_tpu import quant as jq
@@ -35,6 +36,8 @@ from neighbour_feature_pooling_tpu_torch import quant
 from neighbour_feature_pooling_tpu_torch.models import get_model, state_dict_from_flax, torch_module_name
 from neighbour_feature_pooling_tpu_torch.ops import (
     dequant_epilogue, int8_conv2d, int8_conv2d_reference, int8_gemm, int8_gemm_reference)
+from neighbour_feature_pooling_tpu_torch.ops.int8_conv import pack_conv_weight
+from neighbour_feature_pooling_tpu_torch.ops.int8_gemm import _tile_plan, a_mode, pack_weight
 
 SIZE = 32
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -115,15 +118,40 @@ def _check_form(form, rng, n, port_fn, jax_fn):
                 <= np.spacing(product) + np.spacing(np.abs(fused))).all()
 
 
+def _launch_counts():
+    return int8_gemm.launches, int8_conv2d.launches, int8_conv2d.s8_launches
+
+
+def _check_packed(form, rng, n, port_fn, plain_fn):
+    """On the CPU the packed operand changes nothing: the wrapper's result
+    with it is the plain version's, bit for bit, and nothing launches."""
+    _, with_scale, out, relu = form
+    scale, bias = _epilogue_args(rng, n, with_scale)
+    kw = dict(scale=None if scale is None else torch.from_numpy(scale),
+              bias=None if bias is None else torch.from_numpy(bias),
+              out_dtype=out and getattr(torch, out), relu=relu)
+    before = _launch_counts()
+    got, want = port_fn(**kw), plain_fn(**kw)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert _launch_counts() == before
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
 @pytest.mark.parametrize("form", FORMS, ids=[f[0] for f in FORMS])
 @pytest.mark.parametrize("m,k,n", [(37, 100, 70), (64, 64, 128), (5, 300, 9)])
-def test_int8_gemm_plain_matches_jax_kernel(m, k, n, form):
+def test_int8_gemm_plain_matches_jax_kernel(m, k, n, form, packed):
     """Ragged M, N and K; the JAX kernel pads to its tiles, the port's
-    plain version and K4 never pad."""
+    plain version and K4 never pad. ``packed``: the same call with
+    ``b_packed`` against the plain version."""
     rng = np.random.default_rng(m + k + n)
     a, b = _s8(rng, (m, k)), _s8(rng, (k, n))
-    _check_form(form, rng, n,
-                lambda **kw: int8_gemm(torch.from_numpy(a), torch.from_numpy(b), **kw),
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    if packed:
+        _check_packed(form, rng, n,
+                      lambda **kw: int8_gemm(ta, tb, b_packed=pack_weight(tb), **kw),
+                      lambda **kw: int8_gemm_reference(ta, tb, **kw))
+        return
+    _check_form(form, rng, n, lambda **kw: int8_gemm(ta, tb, **kw),
                 lambda **kw: jax_int8_gemm(jnp.asarray(a), jnp.asarray(b), **kw))
 
 
@@ -138,17 +166,106 @@ CONV_CASES = [
 ]
 
 
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
 @pytest.mark.parametrize("form", FORMS, ids=[f[0] for f in FORMS])
 @pytest.mark.parametrize("case", CONV_CASES, ids=[c[0] for c in CONV_CASES])
-def test_int8_conv2d_plain_matches_jax_kernel(case, form):
+def test_int8_conv2d_plain_matches_jax_kernel(case, form, packed):
     _, xshape, (kh, kw, cout), padding, strides = case
     rng = np.random.default_rng(sum(xshape) + kh * cout)
     x, w = _s8(rng, xshape), _s8(rng, (kh, kw, xshape[3], cout))
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    if packed:
+        _check_packed(form, rng, cout,
+                      lambda **kw: int8_conv2d(tx, tw, padding=padding, strides=strides,
+                                               w_packed=pack_conv_weight(tw), **kw),
+                      lambda **kw: int8_conv2d_reference(tx, tw, padding=padding,
+                                                         strides=strides, **kw))
+        return
     _check_form(form, rng, cout,
-                lambda **kw: int8_conv2d(torch.from_numpy(x), torch.from_numpy(w),
-                                         padding=padding, strides=strides, **kw),
+                lambda **kw: int8_conv2d(tx, tw, padding=padding, strides=strides, **kw),
                 lambda **kw: jax_int8_conv2d(jnp.asarray(x), jnp.asarray(w),
                                              padding=padding, strides=strides, **kw))
+
+
+@pytest.mark.parametrize("k,n", [(100, 70), (300, 9), (576, 64)])
+def test_pack_weight_is_the_zero_padded_transpose(k, n):
+    """``(K, N)`` → ``(N, Kp)``: k contiguous, Kp = K rounded up to 16,
+    zeros past K."""
+    w = _s8(np.random.default_rng(k + n), (k, n))
+    kp = -(-k // 16) * 16
+    want = np.zeros((n, kp), np.int8)
+    want[:, :k] = w.T
+    got = pack_weight(torch.from_numpy(w))
+    assert got.dtype == torch.int8 and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_pack_conv_weight_gives_rgb_a_zero_fourth_channel():
+    """HWIO with Cin 3 packs as Cin 4: column (dy·kw + dx)·4 + ci, the
+    fourth channel and the columns past K = 196 zero. Any other Cin packs
+    as its own ``(kh·kw·Cin, Cout)`` view."""
+    w = _s8(np.random.default_rng(7), (7, 7, 3, 64))
+    w4 = np.zeros((7, 7, 4, 64), np.int8)
+    w4[:, :, :3] = w
+    want = np.zeros((64, 208), np.int8)
+    want[:, :196] = w4.reshape(196, 64).T
+    np.testing.assert_array_equal(pack_conv_weight(torch.from_numpy(w)).numpy(), want)
+    w16 = torch.from_numpy(_s8(np.random.default_rng(8), (3, 3, 16, 24)))
+    assert torch.equal(pack_conv_weight(w16), pack_weight(w16.reshape(144, 24)))
+
+
+def test_packed_operand_of_another_weight_is_refused():
+    """The check runs on the CUDA path only; its helper is plain Python."""
+    from neighbour_feature_pooling_tpu_torch.ops.int8_gemm import check_packed
+    check_packed("int8_gemm", torch.zeros(70, 112, dtype=torch.int8), 100, 70)
+    with pytest.raises(ValueError, match="packed weight"):
+        check_packed("int8_gemm", torch.zeros(112, 70, dtype=torch.int8), 100, 70)
+    with pytest.raises(TypeError):
+        pack_weight(torch.zeros(4, 4))
+
+
+def test_zero_fourth_channel_leaves_the_conv_unchanged():
+    """What K5's RGB path relies on: the plain conv of x and w, each
+    zero-padded to four channels, is the plain conv of the originals (s32)."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(_s8(rng, (2, 21, 18, 3)))
+    w = torch.from_numpy(_s8(rng, (7, 7, 3, 16)))
+    pads = ((3, 3), (3, 3))
+    want = int8_conv2d_reference(x, w, pads, (2, 2))
+    x4, w4 = F.pad(x, (0, 1)), F.pad(w, (0, 0, 0, 1))
+    assert x4.shape[-1] == 4 and w4.shape[2] == 4
+    assert torch.equal(int8_conv2d_reference(x4, w4, pads, (2, 2)), want)
+
+
+#: the eleven K5 and K4 products of int8 ResNet18 at 224 px: (m per image, n, k)
+MAIN_PATH_PRODUCTS = {
+    "stem": (112 * 112, 64, 7 * 7 * 4), "layer1": (56 * 56, 64, 576),
+    "layer2.0": (28 * 28, 128, 576), "layer2": (28 * 28, 128, 1152),
+    "layer3.0": (14 * 14, 256, 1152), "layer3": (14 * 14, 256, 2304),
+    "layer4.0": (7 * 7, 512, 2304), "layer4": (7 * 7, 512, 4608),
+    "layer2 downsample": (28 * 28, 128, 64), "layer3 downsample": (14 * 14, 256, 128),
+    "layer4 downsample": (7 * 7, 512, 256)}
+SMALL_TILE_AT_32 = {"layer3.0", "layer3", "layer4.0", "layer4", "layer3 downsample",
+                    "layer4 downsample"}
+
+
+@pytest.mark.parametrize("name", list(MAIN_PATH_PRODUCTS))
+def test_tile_plan_on_the_main_path(name):
+    """64×64 tiles where the 128×64 grid has fewer than 2 × 132 blocks: at
+    B=32 layer3, layer4 and their downsample GEMMs; nowhere at B=128."""
+    m, n, k = MAIN_PATH_PRODUCTS[name]
+    assert _tile_plan(32 * m, n, k) == int(name in SMALL_TILE_AT_32)
+    assert _tile_plan(128 * m, n, k) == 0
+
+
+def test_tile_plan_on_ragged_shapes_and_a_modes():
+    assert _tile_plan(37, 9, 300) == 1 and _tile_plan(1000, 70, 100) == 1
+    assert _tile_plan(128 * 263, 64, 64) == 1 and _tile_plan(128 * 263 + 1, 64, 64) == 0
+    assert _tile_plan(128 * 131 + 1, 65, 64) == 0  # 132 x 2 blocks
+    assert _tile_plan(128 * 20, 64, 64, sms=10) == 0 and _tile_plan(128 * 19, 64, 64, sms=10) == 1
+    # 16-byte chunks, 4-byte words or bytes, by the run of k and the address
+    assert [a_mode(r, 256) for r in (64, 16, 24, 4, 100, 3, 37)] == [2, 2, 1, 1, 1, 0, 0]
+    assert a_mode(64, 260) == 1 and a_mode(64, 257) == 0
 
 
 def test_dequant_epilogue_matches_jax_at_ties():
@@ -185,13 +302,13 @@ def test_kernel_wrappers_check_their_operands(call, error):
 
 def test_cpu_wrappers_never_launch():
     rng = np.random.default_rng(0)
-    before = (int8_gemm.launches, int8_conv2d.launches, int8_conv2d.s8_launches)
+    before = _launch_counts()
     a, b = torch.from_numpy(_s8(rng, (8, 64))), torch.from_numpy(_s8(rng, (64, 16)))
     torch.testing.assert_close(int8_gemm(a, b), int8_gemm_reference(a, b), rtol=0, atol=0)
     x, w = torch.from_numpy(_s8(rng, (1, 6, 6, 16))), torch.from_numpy(_s8(rng, (3, 3, 16, 8)))
     torch.testing.assert_close(int8_conv2d(x, w, strides=(2, 2)),
                                int8_conv2d_reference(x, w, strides=(2, 2)), rtol=0, atol=0)
-    assert (int8_gemm.launches, int8_conv2d.launches, int8_conv2d.s8_launches) == before
+    assert _launch_counts() == before
 
 
 @pytest.mark.parametrize("dims", [None, (0, 1, 2)], ids=["per_tensor", "per_channel"])
@@ -356,6 +473,30 @@ def test_quantized_logits_match_jax(resnet, tier):
     # no fp32 weight of a swapped layer stays in the model
     assert not any(isinstance(m, nn.Conv2d) and name in swapped
                    for name, m in model.named_modules())
+
+
+def test_packed_weights_stay_out_of_the_state_dict(resnet):
+    """``quantize_model`` packs every int8 weight once, in a buffer that
+    ``state_dict()`` leaves out: its keys are the quantized model's own
+    (wq, ws, the affines), and a loaded ``wq`` is packed anew."""
+    model = quant.quantize_model(resnet["port_model"]())
+    mods = {n: m for n, m in model.named_modules() if isinstance(m, quant.Int8Conv2d)}
+    assert len(mods) == 20
+    keys = set(model.state_dict())
+    assert not any("packed" in k for k in keys)
+    assert {f"{n}.wq" for n in mods} | {f"{n}.ws" for n in mods} <= keys
+    float_keys = set(resnet["port_model"]().state_dict())
+    assert keys - float_keys == {f"{n}.{b}" for n in mods for b in ("wq", "ws")}
+    for name, m in mods.items():
+        want = (pack_weight(m.wq.view(m.in_channels, m.out_channels)) if m.gemm
+                else pack_conv_weight(m.wq))
+        assert torch.equal(m.wq_packed, want), name
+    assert mods["backbone.conv1"].wq_packed.shape == (64, 208)  # 7·7·4 = 196 → 208
+    sd = model.state_dict()
+    sd["backbone.layer1.0.conv1.wq"] = -sd["backbone.layer1.0.conv1.wq"]
+    model.load_state_dict(sd)
+    m = mods["backbone.layer1.0.conv1"]
+    assert torch.equal(m.wq_packed, pack_conv_weight(m.wq))
 
 
 def test_int8_linear_matches_jax_dense():

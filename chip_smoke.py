@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
+    python3 chip_smoke.py --parent DIR   # also time DIR's K1 (another checkout) beside this one's
 
 Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
 
@@ -13,7 +14,9 @@ Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
    times both (CUDA events, median of 50 runs queued behind a GPU sleep, so
    host launch overhead is not timed), beside the least time the card could
    take (bytes at 3.35 TB/s or fp32 operations at 67 TFLOP/s, whichever is
-   larger): K1 (``nfp_small``), K2 (``nfp_large``) and K3 (``nfp_strip``);
+   larger): K1 (``nfp_small``, each line with its plan: rows per tile, lanes
+   per pair G, channels per staged chunk), K2 (``nfp_large``) and K3
+   (``nfp_strip``);
 4. serve ResNet18: a ResNet18 + texture_nfp ``Predictor`` on the card with
    seeded weights answers three requests (1, 32, 45 images), goes through
    K1 once per batch, and matches a CPU ``Predictor`` with the same weights
@@ -124,6 +127,28 @@ def k1_cases():
          dict(padding=1, fuse_gap=True)),
         ("mnv3 tap 5 B=32", (32, 7, 7, 960), torch.float32, "cosine",
          dict(padding=1, fuse_gap=True)),
+        ("single-image request B=1", (1, 7, 7, 512), torch.float32, "cosine",
+         dict(padding=1, fuse_gap=True)),
+        ("mnv3 tap 4 B=128", (128, 14, 14, 112), torch.float32, "cosine",
+         dict(padding=1, fuse_gap=True)),
+        ("mnv3 tap 5 B=128", (128, 7, 7, 960), torch.float32, "cosine",
+         dict(padding=1, fuse_gap=True)),
+        ("mnv3 tap 5 B=32 bfloat16", (32, 7, 7, 960), torch.bfloat16, "cosine",
+         dict(padding=1, fuse_gap=True)),
+        ("resnet50 head, chunked C", (8, 7, 7, 2048), torch.float32, "cosine",
+         dict(padding=1, fuse_gap=True)),
+        ("resnet50 head map, chunked C", (8, 7, 7, 2048), torch.float32, "cosine",
+         dict(padding=1)),
+        ("resnet50 head pearson, chunked C", (8, 7, 7, 2048), torch.float32, "pearson",
+         dict(padding=1, fuse_gap=True)),
+        ("R=2 dilation=2 C=768, chunked, 24 neighbours", (8, 14, 14, 768), torch.float32,
+         "cosine", dict(radius=2, dilation=2, padding=4, fuse_gap=True)),
+        ("odd 13x11 zeros pad 2, ragged last tile", (4, 13, 11, 64), torch.float32, "cosine",
+         dict(padding=2, padding_mode="zeros", fuse_gap=True)),
+        ("odd 13x11 zeros pad 2 map", (4, 13, 11, 64), torch.float32, "cosine",
+         dict(padding=2, padding_mode="zeros")),
+        ("pearson 16x16, 256 positions", (8, 16, 16, 64), torch.float32, "pearson",
+         dict(padding=1, fuse_gap=True)),
     ]
     return cases
 
@@ -175,12 +200,17 @@ def k2_cases():
     return cases
 
 
-def check_kernel(wrapper, cases, main_label, nfp_reference, num_neighbors, nfp_output_size):
+def check_kernel(wrapper, cases, main_label, nfp_reference, num_neighbors, nfp_output_size,
+                 note=None, parent=None):
     """Every case against the plain version; returns the main-path case's row.
     A case's kwargs may add ``offset`` (added to the random input) and
-    ``constant`` (one random pixel repeated over the whole map)."""
+    ``constant`` (one random pixel repeated over the whole map).
+    ``note(shape, dtype, radius, kw)`` adds text to a case's line; ``parent``,
+    the same wrapper from another checkout, is timed beside the kernel on the
+    same input, in turns (parent, kernel, kernel, parent)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_row = None
+    warm = False
     for label, shape, dtype, measure, kw in cases:
         kw = dict(kw)
         radius = kw.pop("radius", 1)
@@ -213,7 +243,15 @@ def check_kernel(wrapper, cases, main_label, nfp_reference, num_neighbors, nfp_o
             if ((out.float() - ref.float()).abs() > tol).any():
                 raise AssertionError(f"{label}: bf16 kernel output off by more than one ulp "
                                      f"(max |diff| {err})")
+        if not warm:  # the process's first timing reads high; keep none of it
+            median_ms(lambda: wrapper(x, radius, measure, **kw))
+            warm = True
+        if parent is not None:
+            parent_ms = [median_ms(lambda: parent(x, radius, measure, **kw))]
         k_ms = median_ms(lambda: wrapper(x, radius, measure, **kw))
+        if parent is not None:
+            k2_ms = median_ms(lambda: wrapper(x, radius, measure, **kw))
+            parent_ms.append(median_ms(lambda: parent(x, radius, measure, **kw)))
         p_ms = median_ms(lambda: nfp_reference(x, radius, measure, **kw))
         b, h, w, c = shape
         pad, dil = kw.get("padding", 0), kw.get("dilation", 1)
@@ -224,8 +262,13 @@ def check_kernel(wrapper, cases, main_label, nfp_reference, num_neighbors, nfp_o
         bytes_ms, flops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / FP32_FLOPS_PER_S * 1e3
         row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=max(bytes_ms, flops_ms),
                    bound_by="bytes" if bytes_ms >= flops_ms else "operations")
+        extra = "" if note is None else "  " + note(shape, dtype, radius, kw)
+        if parent is not None:
+            extra += (f"  parent {parent_ms[0] * 1e3:.2f} / {parent_ms[1] * 1e3:.2f} us, "
+                      f"kernel again {k2_ms * 1e3:.2f} us")
         print(f"  {label:42s} {str(tuple(shape)):18s} max|err| {err:.3e}  kernel {k_ms * 1e3:9.2f} us"
-              f"  plain {p_ms * 1e3:9.2f} us  bound {row['bound_ms'] * 1e3:6.2f} us ({row['bound_by']})")
+              f"  plain {p_ms * 1e3:9.2f} us  bound {row['bound_ms'] * 1e3:6.2f} us ({row['bound_by']})"
+              + extra)
         if label == main_label:
             main_row = row
     return main_row
@@ -763,7 +806,32 @@ def kernel_entry(launches, bench, nfp_kernel, nfp_reference):
     return counts
 
 
+def load_parent_k1(path):
+    """``nfp_small_cuda`` of another checkout of this repository (for
+    example the parent commit, unpacked with ``git archive``), imported under
+    the package name ``parent_port`` so both versions load side by side; its
+    kernel builds into that checkout's ``csrc/_build``."""
+    import importlib
+    import importlib.util
+    pkg = os.path.join(os.path.abspath(path), "neighbour_feature_pooling_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["parent_port"] = module
+    spec.loader.exec_module(module)
+    cuda = importlib.import_module("parent_port.ops.nfp_cuda")
+    for line in cuda._build.build_all(["nfp_small"]).get("nfp_small", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  parent nfp_small: {line.strip()}")
+    return cuda.nfp_small_cuda
+
+
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="another checkout of the repository: time its K1 beside this one's")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device and none is available")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -776,7 +844,7 @@ def main():
     from neighbour_feature_pooling_tpu_torch.ops.int8_gemm import (
         int8_gemm, int8_gemm_reference, pack_weight)
     from neighbour_feature_pooling_tpu_torch.ops.nfp_cuda import (
-        nfp, nfp_kernel, nfp_large_cuda, nfp_small_cuda, nfp_strip_cuda)
+        _k1_plan, nfp, nfp_kernel, nfp_large_cuda, nfp_small_cuda, nfp_strip_cuda)
     from neighbour_feature_pooling_tpu_torch.tools import bench_nfp_kernel
     from neighbour_feature_pooling_tpu_torch.serve import Predictor
 
@@ -795,10 +863,20 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {kernel}: {line.strip()}")
 
+    parent_k1 = None if args.parent is None else load_parent_k1(args.parent)
+
+    def k1_plan(shape, dtype, radius, kw):
+        b, h, w, c = shape
+        pad, dil = kw.get("padding", 0), kw.get("dilation", 1)
+        plan = _k1_plan(b, h, w, c, nfp_output_size(h, radius, 1, pad, dil),
+                        nfp_output_size(w, radius, 1, pad, dil), radius, dil, dtype)
+        return f"rows={plan.rows} G={plan.group} chunk={plan.chunk}"
+
     print("kernels: nfp_small (K1) against nfp_reference on the card "
           "(fp32 rtol=atol=1e-5; bf16 within one bf16 ulp)")
     rows = dict(nfp_small=check_kernel(nfp_small_cuda, k1_cases(), "serve B=32 float32 fuse_gap=True",
-                                       nfp_reference, num_neighbors, nfp_output_size))
+                                       nfp_reference, num_neighbors, nfp_output_size,
+                                       note=k1_plan, parent=parent_k1))
     print("kernels: nfp_large (K2) against nfp_reference on the card "
           "(fp32 rtol=atol=1e-5; bf16 within one bf16 ulp)")
     rows["nfp_large"] = check_kernel(nfp_large_cuda, k2_cases(), K2_MAIN,

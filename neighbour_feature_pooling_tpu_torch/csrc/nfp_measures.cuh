@@ -83,6 +83,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Sum over each aligned group of G lanes (G a power of two up to 32);
+// every lane of the group gets it. The whole warp must call it.
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // Calls f(c, n) for every channel that thread `lane` of `lanes` owns: with
 // a.vec, 16-byte chunks lane, lane + lanes, ...; else single channels. A
 // null pixel reads as zeros.
@@ -209,7 +218,7 @@ __device__ __forceinline__ float apply_finalize(const Args& a, float v) {
 // The finalized measure between two pixels, computed by one whole warp
 // (lanes over channels); every lane returns it. pearson takes two passes,
 // channel means first, as the centred form in measures.py does. Used by
-// nfp_small.cu (K1) and nfp_strip.cu (K3).
+// nfp_strip.cu (K3).
 template <typename T>
 __device__ float pair_value(const T* pc, const T* pn, const Args& a,
                             int lane) {

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -57,9 +58,87 @@ _MEASURE_IDS = {name: i for i, name in enumerate((
     "chisquared1", "chisquared2", "gfc", "pearson", "jeffrey", "squaredchord",
     "smith", "scs"))}
 _FINALIZE_IDS = {"neg_if_sim": 0, "neg_if_dist": 1, "one_minus_if_dist": 2}
-#: kernels that tile the positions across blocks and take a partial-sum
-#: buffer for the fused GAP
-_TILED = ("nfp_large", "nfp_strip")
+#: K1's block size (``csrc/nfp_small.cu::kThreads``), the most row tiles an
+#: image is cut into (one thread-block cluster, 8 at most where portable),
+#: and the shared memory a K1 block may take: two blocks fit on one SM
+#: (228 KB, 1 KB of it reserved per block)
+_K1_THREADS = 256
+_K1_MAX_TILES = 8
+_K1_SMEM_BUDGET = 112 * 1024
+
+
+class K1Plan(NamedTuple):
+    """How K1 cuts one launch: ``rows`` output rows per block, ``n_tiles``
+    blocks per image, ``chunk`` channels staged at a time, ``group`` lanes
+    per (position, neighbour) pair, and the most shared memory a block
+    takes (``smem_bytes``, any measure)."""
+    rows: int
+    n_tiles: int
+    chunk: int
+    group: int
+    smem_bytes: int
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _k1_smem_bytes(rows, chunk, C, Wo, radius, dilation, elem_bytes) -> int:
+    """Shared memory of one K1 block in its largest case, ``pearson`` with
+    the fused GAP (``csrc/nfp_small.cu::smem_layout``): the staged window,
+    the pixel means, the per-pair chunk accumulators, the pair values and
+    the window's source rows and columns."""
+    k = 2 * radius + 1
+    span = (k - 1) * dilation
+    n_pix = (rows + span) * (Wo + span)
+    n_pairs = rows * Wo * (k * k - 1)
+    return (_align16(n_pix * chunk * elem_bytes) + _align16(n_pix * 4)
+            + (_align16(n_pairs * 12) if C // chunk > 1 else 0)
+            + _align16(n_pairs * 4) + _align16((rows + span + Wo + span) * 4))
+
+
+def _k1_plan(B, H, W, C, Ho, Wo, radius, dilation, dtype) -> K1Plan:
+    """K1's cut of a (B, H, W, C) map with an Ho × Wo output.
+
+    * ``rows``: as many row tiles per image as the cap of 8 allows, so the
+      most blocks B gives (7 tiles of 1 row at 7², 7 of 2 rows at 14²):
+      taller tiles were slower on the H100 even at B=128, where the grid
+      needs several waves (PERF.md §6).
+    * ``chunk``: all C channels where the window fits the 112 KB budget,
+      else the largest divisor of C that fits (a multiple of the 16-byte
+      vector where C is one), so every chunk is full.
+    * ``group``: the largest power of two from 4 to 32 whose groups still
+      take all of a block's pairs in one round, and no more than a pixel's
+      16-byte vectors (channels, where C has no whole vectors); 4 where no
+      size does. Fewer lanes per pair means fewer shuffle steps.
+    """
+    del B, H, W  # the window depends on the output map and the padding only
+    vec = 4 if dtype == torch.float32 else 8  # elements per 16 bytes
+    rows = -(-Ho // min(_K1_MAX_TILES, Ho))
+    n_tiles = -(-Ho // rows)
+    chunk, smem = _k1_chunk(rows, C, Wo, radius, dilation, dtype)
+    units = chunk // vec if C % vec == 0 else chunk
+    pairs = rows * Wo * ((2 * radius + 1) ** 2 - 1)
+    fits = [g for g in (4, 8, 16, 32)
+            if g <= max(4, units) and pairs <= _K1_THREADS // g]
+    return K1Plan(rows, n_tiles, chunk, max(fits, default=4), smem)
+
+
+def _k1_chunk(rows, C, Wo, radius, dilation, dtype):
+    """The largest divisor of C whose ``rows``-row window fits K1's shared
+    memory budget (a multiple of the 16-byte vector where C is one), and
+    the shared memory it takes."""
+    vec = 4 if dtype == torch.float32 else 8  # elements per 16 bytes
+    elem = 4 if dtype == torch.float32 else 2
+    for n in range(1, C + 1):
+        chunk = C // n
+        if C % n or (C % vec == 0 and chunk % vec):
+            continue
+        smem = _k1_smem_bytes(rows, chunk, C, Wo, radius, dilation, elem)
+        if smem <= _K1_SMEM_BUDGET:
+            return chunk, smem
+    raise ValueError(f"nfp_small_cuda: no channel chunk of C={C} fits a "
+                     f"{rows}-row window of a {Wo}-wide map in shared memory")
 
 
 def kernel_supported(measure: str, stride: int) -> bool:
@@ -69,12 +148,15 @@ def kernel_supported(measure: str, stride: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def _library_fn(name: str):
-    """``<name>_forward`` of ``csrc/<name>.cu`` with its ctypes signature."""
+    """``<name>_forward`` of ``csrc/<name>.cu`` with its ctypes signature:
+    K1 takes its plan (rows, chunk, group) and reduces its fused GAP within
+    one launch; K2 and K3 take a partial-sum buffer for theirs."""
     lib = _build.load_library(name)
     fn = getattr(lib, f"{name}_forward")
-    n_ptrs = 3 if name in _TILED else 2  # K2 and K3 also take their partials
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 16
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    k1 = name == "nfp_small"
+    fn.argtypes = ([ctypes.c_void_p] * (2 if k1 else 3) + [ctypes.c_int] * 16
+                   + [ctypes.c_float] * 3 + [ctypes.c_int] * (3 if k1 else 0)
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -122,8 +204,11 @@ def _launch(name, x, radius, m, *, similarity, p, eps, q_scs, padding,
                       dtype=torch.float32, device=x.device)
     if b == 0:  # an empty grid is not a valid launch
         return out.to(x.dtype)
-    ptrs = [x.data_ptr(), out.data_ptr()]
-    if name in _TILED:
+    ptrs, plan = [x.data_ptr(), out.data_ptr()], ()
+    if name == "nfp_small":
+        k1 = _k1_plan(b, h, w, c, h_out, w_out, radius, dilation, x.dtype)
+        plan = (k1.rows, k1.chunk, k1.group)
+    else:
         n_tiles = -(-h_out * w_out // _tile_positions(name))
         partial = (torch.empty((b, n_tiles, n), dtype=torch.float32, device=x.device)
                    if fuse_gap else None)
@@ -137,7 +222,7 @@ def _launch(name, x, radius, m, *, similarity, p, eps, q_scs, padding,
             b, h, w, c, h_out, w_out, radius, dilation, padding,
             PAD_MODES.index(padding_mode), _MEASURE_IDS[m.name],
             _FINALIZE_IDS[m.finalize_kind], int(similarity), int(fuse_gap),
-            vec, p, eps, q_scs, stream)
+            vec, p, eps, q_scs, *plan, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
     return out.to(x.dtype)

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
-    python3 chip_smoke.py --parent DIR   # also time DIR's K1 (another checkout) beside this one's
+    python3 chip_smoke.py --parent DIR   # also time DIR's K1 and K2 (another checkout) beside this one's
 
 Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
 
@@ -15,8 +15,13 @@ Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
    host launch overhead is not timed), beside the least time the card could
    take (bytes at 3.35 TB/s or fp32 operations at 67 TFLOP/s, whichever is
    larger): K1 (``nfp_small``, each line with its plan: rows per tile, lanes
-   per pair G, channels per staged chunk), K2 (``nfp_large``) and K3
-   (``nfp_strip``);
+   per pair G, channels per staged chunk), K2 (``nfp_large``, each line with
+   its plan: rows per block, rows per step, columns per tile, lanes per
+   position G, channels per staged chunk, staged pixel stride in 16-byte
+   vectors) and
+   K3 (``nfp_strip``); with ``--parent``, each K1 and K2 line also gives
+   the other checkout's time on the same input, in turns (parent, this,
+   this, parent), and its ptxas lines are printed;
 4. serve ResNet18: a ResNet18 + texture_nfp ``Predictor`` on the card with
    seeded weights answers three requests (1, 32, 45 images), goes through
    K1 once per batch, and matches a CPU ``Predictor`` with the same weights
@@ -165,9 +170,23 @@ def k2_cases():
             cases.append((f"tap {tap} B=32 {str(dtype)[6:]}", (32, s, s, c), dtype,
                           "cosine", gap))
     cases += [
+        ("tap 1 B=1 float32", (1, 112, 112, 16), torch.float32, "cosine", gap),
         ("tap 1 B=128 float32", (128, 112, 112, 16), torch.float32, "cosine", gap),
+        ("tap 2 B=128 float32", (128, 56, 56, 24), torch.float32, "cosine", gap),
+        ("tap 3 B=128 float32", (128, 28, 28, 40), torch.float32, "cosine", gap),
         ("nfp_insert map, padding 0", (32, 56, 56, 24), torch.float32, "cosine",
          dict(padding=0)),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for tap, (s, c) in enumerate(((112, 16), (56, 24), (28, 40)), start=1):
+            if dtype == torch.float32 or tap > 1:
+                cases.append((f"tap {tap} B=32 {str(dtype)[6:]} map", (32, s, s, c), dtype,
+                              "cosine", dict(padding=1)))
+    cases += [
+        ("C=256 map, chunked C", (8, 56, 56, 256), torch.float32, "cosine", dict(padding=1)),
+        ("smith map (pixel sums)", (8, 56, 56, 24), torch.float32, "smith", dict(padding=1)),
+        ("scs p=2.0 map (pixel sums)", (8, 56, 56, 24), torch.float32, "scs",
+         dict(padding=1, p=2.0)),
     ]
     for measure, kw in (("norm", dict(p=1.0)), ("norm", dict(p=2.0)), ("norm", dict(p=3.0)),
                         ("cosine", dict(similarity=False)), ("dot", {}), ("attention", {}),
@@ -806,11 +825,12 @@ def kernel_entry(launches, bench, nfp_kernel, nfp_reference):
     return counts
 
 
-def load_parent_k1(path):
-    """``nfp_small_cuda`` of another checkout of this repository (for
-    example the parent commit, unpacked with ``git archive``), imported under
-    the package name ``parent_port`` so both versions load side by side; its
-    kernel builds into that checkout's ``csrc/_build``."""
+def load_parent(path):
+    """``ops.nfp_cuda`` of another checkout of this repository (for example
+    the parent commit, unpacked with ``git archive``), imported under the
+    package name ``parent_port`` so both versions load side by side; its K1
+    and K2 build into that checkout's ``csrc/_build``, and ptxas' register
+    and spill lines for them are printed."""
     import importlib
     import importlib.util
     pkg = os.path.join(os.path.abspath(path), "neighbour_feature_pooling_tpu_torch")
@@ -820,17 +840,19 @@ def load_parent_k1(path):
     sys.modules["parent_port"] = module
     spec.loader.exec_module(module)
     cuda = importlib.import_module("parent_port.ops.nfp_cuda")
-    for line in cuda._build.build_all(["nfp_small"]).get("nfp_small", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  parent nfp_small: {line.strip()}")
-    return cuda.nfp_small_cuda
+    for kernel, log in cuda._build.build_all(["nfp_small", "nfp_large"]).items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  parent {kernel}: {line.strip()}")
+    return cuda
 
 
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="another checkout of the repository: time its K1 beside this one's")
+                    help="another checkout of the repository: time its K1 and K2 beside "
+                         "this one's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device and none is available")
@@ -844,7 +866,7 @@ def main():
     from neighbour_feature_pooling_tpu_torch.ops.int8_gemm import (
         int8_gemm, int8_gemm_reference, pack_weight)
     from neighbour_feature_pooling_tpu_torch.ops.nfp_cuda import (
-        _k1_plan, nfp, nfp_kernel, nfp_large_cuda, nfp_small_cuda, nfp_strip_cuda)
+        _k1_plan, _k2_plan, nfp, nfp_kernel, nfp_large_cuda, nfp_small_cuda, nfp_strip_cuda)
     from neighbour_feature_pooling_tpu_torch.tools import bench_nfp_kernel
     from neighbour_feature_pooling_tpu_torch.serve import Predictor
 
@@ -863,24 +885,31 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {kernel}: {line.strip()}")
 
-    parent_k1 = None if args.parent is None else load_parent_k1(args.parent)
+    parent = None if args.parent is None else load_parent(args.parent)
 
-    def k1_plan(shape, dtype, radius, kw):
-        b, h, w, c = shape
-        pad, dil = kw.get("padding", 0), kw.get("dilation", 1)
-        plan = _k1_plan(b, h, w, c, nfp_output_size(h, radius, 1, pad, dil),
-                        nfp_output_size(w, radius, 1, pad, dil), radius, dil, dtype)
-        return f"rows={plan.rows} G={plan.group} chunk={plan.chunk}"
+    def planned(plan_fn, fmt):
+        def note(shape, dtype, radius, kw):
+            b, h, w, c = shape
+            pad, dil = kw.get("padding", 0), kw.get("dilation", 1)
+            return fmt(plan_fn(b, h, w, c, nfp_output_size(h, radius, 1, pad, dil),
+                               nfp_output_size(w, radius, 1, pad, dil), radius, dil, dtype))
+        return note
+
+    k1_plan = planned(_k1_plan, lambda p: f"rows={p.rows} G={p.group} chunk={p.chunk}")
+    k2_plan = planned(_k2_plan, lambda p: f"rows={p.rows} step={p.step} cols={p.cols} "
+                                          f"G={p.group} chunk={p.chunk} stride={p.stride}")
 
     print("kernels: nfp_small (K1) against nfp_reference on the card "
           "(fp32 rtol=atol=1e-5; bf16 within one bf16 ulp)")
     rows = dict(nfp_small=check_kernel(nfp_small_cuda, k1_cases(), "serve B=32 float32 fuse_gap=True",
                                        nfp_reference, num_neighbors, nfp_output_size,
-                                       note=k1_plan, parent=parent_k1))
+                                       note=k1_plan,
+                                       parent=parent and parent.nfp_small_cuda))
     print("kernels: nfp_large (K2) against nfp_reference on the card "
           "(fp32 rtol=atol=1e-5; bf16 within one bf16 ulp)")
     rows["nfp_large"] = check_kernel(nfp_large_cuda, k2_cases(), K2_MAIN,
-                                     nfp_reference, num_neighbors, nfp_output_size)
+                                     nfp_reference, num_neighbors, nfp_output_size,
+                                     note=k2_plan, parent=parent and parent.nfp_large_cuda)
     print("kernels: nfp_strip (K3) against nfp_reference on the card "
           "(fp32 rtol=atol=1e-5; bf16 within one bf16 ulp)")
     rows["nfp_strip"] = check_kernel(nfp_strip_cuda, k3_cases(), K3_MAIN,

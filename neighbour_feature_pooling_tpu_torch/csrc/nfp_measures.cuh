@@ -1,5 +1,5 @@
-// NFP measure arithmetic shared by the CUDA kernels nfp_small.cu (K1),
-// nfp_large.cu (K2) and nfp_strip.cu (K3).
+// NFP measure arithmetic and staging helpers shared by the CUDA kernels
+// nfp_small.cu (K1), nfp_large.cu (K2) and nfp_strip.cu (K3).
 //
 // Every measure but pearson and mahalanobis is a sum over channels of
 // per-channel terms (up to three accumulators) followed by a scalar tail:
@@ -92,6 +92,14 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
+// 16-byte cp.async from global to shared memory; an invalid source reads
+// as zeros (source size 0) and is never dereferenced.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
 // Calls f(c, n) for every channel that thread `lane` of `lanes` owns: with
 // a.vec, 16-byte chunks lane, lane + lanes, ...; else single channels. A
 // null pixel reads as zeros.
@@ -181,6 +189,13 @@ __device__ __forceinline__ void add_terms(const Args& a, float c, float n,
   }
 }
 
+// scs' tail on the cosine: sign(cos) |cos|^p, NaN/Inf scrubbed to 0.
+__device__ __forceinline__ float scs_sharpen(float cos, float p) {
+  const float mag = powf(fabsf(cos), p);
+  const float v = cos > 0.f ? mag : (cos < 0.f ? -mag : 0.f);
+  return isfinite(v) ? v : 0.f;
+}
+
 // Pairwise tail: channel sums -> measure value (SEPARABLE.finalize_sums;
 // PEARSON is K1's centred two-pass form).
 __device__ __forceinline__ float finish(const Args& a, float s0, float s1,
@@ -196,12 +211,7 @@ __device__ __forceinline__ float finish(const Args& a, float s0, float s1,
     case GFC: return s0 / (sqrtf(s1) * sqrtf(s2) + a.eps);
     case PEARSON: return s0 / sqrtf(s1 * s2 + a.eps);
     case SMITH: return 1.f - s0 / (fminf(s1, s2) + a.eps);
-    case SCS: {
-      const float cos = s0 / ((sqrtf(s1) + a.q_scs) * (sqrtf(s2) + a.q_scs));
-      const float mag = powf(fabsf(cos), a.p);
-      const float v = cos > 0.f ? mag : (cos < 0.f ? -mag : 0.f);
-      return isfinite(v) ? v : 0.f;  // NaN/Inf scrubbed to 0
-    }
+    case SCS: return scs_sharpen(s0 / ((sqrtf(s1) + a.q_scs) * (sqrtf(s2) + a.q_scs)), a.p);
     default:  // DOT, EMD, CANBERRA, CHISQ1, CHISQ2, JEFFREY, SQUAREDCHORD
       return s0;
   }
@@ -242,27 +252,32 @@ __device__ float pair_value(const T* pc, const T* pn, const Args& a,
   return apply_finalize(a, finish(a, s0, s1, s2));
 }
 
-// Second pass of the tiled kernels' fused GAP (nfp_large.cu, nfp_strip.cu):
-// one block per image sums the per-tile partials (B, n_tiles, N) in tile
-// order and divides by the position count. A fixed order, no atomics, so
-// the result repeats bit for bit.
-__global__ void gap_reduce(const float* __restrict__ partial,
-                           float* __restrict__ out, int n_tiles, int n_nb,
-                           int n_pos) {
+// Second pass of K3's fused GAP (nfp_strip.cu; K2 reduces in the same order
+// within its launch): one block per image sums the per-tile partials
+// (B, n_tiles, N) and divides by the position count; a warp takes a
+// neighbour, its lanes the tiles lane, lane + 32, ... in order, then a fixed
+// xor tree. A fixed order, no atomics, so the result repeats bit for bit.
+constexpr int kGapThreads = 256;
+
+__global__ void __launch_bounds__(kGapThreads)
+gap_reduce(const float* __restrict__ partial, float* __restrict__ out, int n_tiles,
+           int n_nb, int n_pos) {
   const long long b = blockIdx.x;
-  for (int nb = threadIdx.x; nb < n_nb; nb += blockDim.x) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int nb = warp; nb < n_nb; nb += kGapThreads / 32) {
     float s = 0.f;
-    for (int t = 0; t < n_tiles; ++t) s += partial[(b * n_tiles + t) * n_nb + nb];
-    out[b * n_nb + nb] = s / (float)n_pos;
+    for (int t = lane; t < n_tiles; t += 32) s += partial[(b * n_tiles + t) * n_nb + nb];
+    s = warp_sum(s);
+    if (lane == 0) out[b * n_nb + nb] = s / (float)n_pos;
   }
 }
 
 inline int launch_gap_reduce(const void* partial, void* out, int batch,
                              int n_tiles, int n_nb, int n_pos,
                              cudaStream_t stream) {
-  gap_reduce<<<batch, n_nb < 32 ? 32 : (n_nb < 1024 ? n_nb : 1024), 0,
-               stream>>>(static_cast<const float*>(partial),
-                         static_cast<float*>(out), n_tiles, n_nb, n_pos);
+  gap_reduce<<<batch, kGapThreads, 0, stream>>>(static_cast<const float*>(partial),
+                                                static_cast<float*>(out), n_tiles,
+                                                n_nb, n_pos);
   return (int)cudaGetLastError();
 }
 

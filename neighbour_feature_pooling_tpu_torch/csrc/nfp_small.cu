@@ -87,12 +87,6 @@ __host__ __device__ inline Layout smem_layout(const Args& a, int rows, int chunk
   return L;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
 // Copies channels [c0, c0 + chunk) of the window's n_pix pixels into win
 // (pixel-major, chunk channels each); a pixel with a negative source row or
 // column is zeros. Ends with a block-wide barrier.

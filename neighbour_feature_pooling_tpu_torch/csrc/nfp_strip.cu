@@ -31,8 +31,8 @@
 //  * Fused GAP, bit-repeatable as in K2: lane 0 of each warp adds its
 //    positions' values to its own row of shared memory in position order,
 //    the block sums the rows in warp order into one partial per (image,
-//    tile, neighbour), and gap_reduce adds the partials in tile order. No
-//    atomics. Each value is finalized before the sum (the TPU body
+//    tile, neighbour), and gap_reduce adds an image's partials in a fixed
+//    order (nfp_measures.cuh). No atomics. Each value is finalized before the sum (the TPU body
 //    finalizes the mean instead, which agrees up to rounding).
 //  * Output is fp32: (B, N) with fuse_gap, else (B, H', W', N); the Python
 //    wrapper casts it to the input dtype.

@@ -141,22 +141,151 @@ def _k1_chunk(rows, C, Wo, radius, dilation, dtype):
                      f"{rows}-row window of a {Wo}-wide map in shared memory")
 
 
+#: K2's block size (``csrc/nfp_large.cu::kThreads``), the centre-pixel
+#: floats one lane holds in registers (``kLaneFloats``), the shared memory a
+#: K2 block may take (two blocks fit on one SM, as its ~110 registers a
+#: thread allow: 228 KB, 1 KB of it reserved per block), the blocks a launch
+#: should give the card (three for every two of the H100's 132 SMs) and the
+#: most steps of rows a block takes
+_K2_THREADS = 256
+_K2_LANE_FLOATS = 16
+_K2_SMEM_BUDGET = 112 * 1024
+_K2_MIN_BLOCKS = 198
+_K2_MAX_ITERS = 4
+
+
+class K2Plan(NamedTuple):
+    """How K2 cuts one launch: ``rows`` output rows per block, taken
+    ``step`` rows at a time, over ``cols`` output columns (``n_strips`` ×
+    ``n_cols`` blocks per image), ``chunk`` channels staged at a time,
+    ``group`` lanes per output position, ``stride`` 16-byte vectors per
+    staged pixel, and the shared memory a block takes (``smem_bytes``)."""
+    rows: int
+    step: int
+    cols: int
+    n_strips: int
+    n_cols: int
+    chunk: int
+    group: int
+    stride: int
+    smem_bytes: int
+
+
+def _k2_smem_bytes(rows, step, cols, stride, radius, dilation) -> int:
+    """Shared memory of one K2 block (``csrc/nfp_large.cu::smem_layout``):
+    the ring of staged window rows (an iteration's ``step`` + span rows, and
+    the next iteration's ``step`` while they load), a tail per ring pixel,
+    an iteration's pair values, the window's source rows and columns, the
+    neighbour offsets, the block's GAP sums and a flag."""
+    k = 2 * radius + 1
+    span = (k - 1) * dilation
+    n_pix = ((2 * step if rows > step else step) + span) * (cols + span)
+    return (n_pix * stride * 16 + _align16(n_pix * 4)
+            + _align16(step * cols * (k * k - 1) * 4)
+            + _align16((rows + span + cols + span + 3 * (k * k - 1) + 1) * 4))
+
+
+def _k2_stride(units, group):
+    """The staged pixel stride, in 16-byte vectors, of a pixel of ``units``
+    vectors read by ``group`` lanes: at least ``units`` and, below 8 lanes,
+    ``group`` times an odd number, so that the 8 lanes of a quarter-warp
+    read 8 distinct 16-byte bank groups."""
+    stride = units
+    while group < 8 and stride % (2 * group) != group:
+        stride += 1
+    return stride
+
+
+def _k2_plan(B, H, W, C, Ho, Wo, radius, dilation, dtype) -> K2Plan:
+    """K2's cut of a (B, H, W, C) map with an Ho × Wo output.
+
+    * ``chunk``: all C channels where a one-row full-width strip fits the
+      112 KB budget and a lane's registers (16 floats, at most 32 lanes), else
+      the largest divisor of C that does (a multiple of the 16-byte vector
+      where C is one), so every chunk is full.
+    * ``group``: the fewest lanes per position (a power of two up to 32)
+      whose registers hold the chunk's centre pixel, 16 floats a lane: 1 at
+      C=16 fp32, 2 at C=24, 4 at C=40; fewer lanes means fewer shuffle
+      steps per pair. ``stride``: ``_k2_stride``.
+    * ``cols``: the full width ``Wo``; column tiles only where even a
+      one-row step of the smallest chunk exceeds the budget.
+    * ``step``: among the steps that fit the budget and, one step a block,
+      still give the card 1.5 blocks per SM at this B, the shortest whose
+      positions fill 1.5 rounds of the block's lane groups (the longest
+      where none does; 1 row where no step gives that many blocks): 4 rows
+      at the MobileNetV3 taps 112², 56² and 28² at B = 32 and 128.
+    * ``rows``: ``step`` times the most iterations (up to 4) that keep 1.5
+      blocks per SM and fit the budget with the next step's rows loading
+      while a step computes; always one iteration with a chunked C (each
+      chunk is a pass over the block's rows). At B=32: 16, 8 and 4 rows at
+      the taps, 224 blocks each; at B=128, 16 rows.
+
+    The constants come from ``tools/sweep_k2_plan.py`` on the H100 (PERF.md
+    §6): longer steps and fewer, longer-lived blocks won at every
+    B=32 and B=128 tap, down to 224 blocks at B=32 (1.7 a SM; 448 blocks
+    were 7–12% slower), and the fewest lanes per position won everywhere.
+    """
+    del H, W  # the window depends on the output map and the padding only
+    vec = 4 if dtype == torch.float32 else 8  # elements per 16 bytes
+    slots = _K2_LANE_FLOATS // vec  # 16-byte vectors a lane holds
+    chunks = [C // n for n in range(1, C + 1)
+              if C % n == 0 and not (C % vec == 0 and (C // n) % vec)
+              and -(-(C // n) // vec) <= 32 * slots]
+    cols = Wo
+    while True:
+        for chunk in chunks:
+            units = -(-chunk // vec)
+            group = next(g for g in (1, 2, 4, 8, 16, 32) if -(-units // g) <= slots)
+            stride = _k2_stride(units, group)
+            fits = [st for st in range(1, Ho + 1) if _k2_smem_bytes(
+                st, st, cols, stride, radius, dilation) <= _K2_SMEM_BUDGET]
+            if fits:
+                break
+        if fits or cols == 1:
+            break
+        cols = -(-cols // 2)
+    if not fits:
+        raise ValueError(f"nfp_large_cuda: no strip of a {Wo}-wide map with C={C} fits "
+                         f"K2's shared memory budget")
+    n_cols = -(-Wo // cols)
+    n_groups = _K2_THREADS // group
+
+    def blocks(r):
+        return -(-Ho // r) * n_cols * B
+
+    busy = [st for st in fits if blocks(st) >= _K2_MIN_BLOCKS]
+    step = next((st for st in busy if 2 * st * cols >= 3 * n_groups), busy[-1]) if busy else 1
+    iters = [n for n in range(2, min(_K2_MAX_ITERS, -(-Ho // step)) + 1)
+             if blocks(n * step) >= _K2_MIN_BLOCKS and _k2_smem_bytes(
+                 n * step, step, cols, stride, radius, dilation) <= _K2_SMEM_BUDGET]
+    rows = step * (max(iters) if iters and chunk == C else 1)
+    return K2Plan(rows, step, cols, -(-Ho // rows), n_cols, chunk, group, stride,
+                  _k2_smem_bytes(rows, step, cols, stride, radius, dilation))
+
+
 def kernel_supported(measure: str, stride: int) -> bool:
     """The kernels cover stride 1 and every stat-free measure."""
     return get_measure(measure).name != "mahalanobis" and stride == 1
+
+
+#: the pointers each kernel's C entry takes first, and the plan integers it
+#: takes after the common arguments
+_POINTERS = {"nfp_small": 2, "nfp_large": 4, "nfp_strip": 3}
+_PLAN_INTS = {"nfp_small": 3, "nfp_large": 6, "nfp_strip": 0}
 
 
 @functools.lru_cache(maxsize=None)
 def _library_fn(name: str):
     """``<name>_forward`` of ``csrc/<name>.cu`` with its ctypes signature:
     K1 takes its plan (rows, chunk, group) and reduces its fused GAP within
-    one launch; K2 and K3 take a partial-sum buffer for theirs."""
+    one launch; K2 takes its plan (rows, step, cols, chunk, group, stride), a
+    partial-sum buffer and arrival counters, and reduces its fused GAP within
+    one launch too; K3 takes a partial-sum buffer for its second pass."""
     lib = _build.load_library(name)
     fn = getattr(lib, f"{name}_forward")
-    k1 = name == "nfp_small"
-    fn.argtypes = ([ctypes.c_void_p] * (2 if k1 else 3) + [ctypes.c_int] * 16
-                   + [ctypes.c_float] * 3 + [ctypes.c_int] * (3 if k1 else 0)
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * _POINTERS[name]
+                   + [ctypes.c_int] * 16 + [ctypes.c_float] * 3
+                   + [ctypes.c_int] * _PLAN_INTS[name] + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -166,6 +295,22 @@ def _tile_positions(name: str) -> int:
     fn = getattr(_build.load_library(name), f"{name}_tile_positions")
     fn.restype = ctypes.c_int
     return fn()
+
+
+_ARRIVALS = {}
+
+
+def _arrival_counters(device, batch):
+    """K2's arrival counters for the current stream of ``device``: ``batch``
+    or more int32 zeros, kept between launches (each launch's last block per
+    image resets its counter), one buffer per stream so that launches on two
+    streams never share one."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < batch:
+        buf = _ARRIVALS[key] = torch.zeros(max(batch, 128), dtype=torch.int32, device=device)
+    return buf
 
 
 def _launch(name, x, radius, m, *, similarity, p, eps, q_scs, padding,
@@ -209,10 +354,17 @@ def _launch(name, x, radius, m, *, similarity, p, eps, q_scs, padding,
         k1 = _k1_plan(b, h, w, c, h_out, w_out, radius, dilation, x.dtype)
         plan = (k1.rows, k1.chunk, k1.group)
     else:
-        n_tiles = -(-h_out * w_out // _tile_positions(name))
+        if name == "nfp_large":
+            k2 = _k2_plan(b, h, w, c, h_out, w_out, radius, dilation, x.dtype)
+            plan = (k2.rows, k2.step, k2.cols, k2.chunk, k2.group, k2.stride)
+            n_tiles = k2.n_strips * k2.n_cols
+        else:
+            n_tiles = -(-h_out * w_out // _tile_positions(name))
         partial = (torch.empty((b, n_tiles, n), dtype=torch.float32, device=x.device)
                    if fuse_gap else None)
         ptrs.append(None if partial is None else partial.data_ptr())
+        if name == "nfp_large":
+            ptrs.append(_arrival_counters(x.device, b).data_ptr() if fuse_gap else None)
     vec_width = 4 if x.dtype == torch.float32 else 8  # elements per 16 bytes
     vec = int(c % vec_width == 0 and x.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
@@ -304,7 +456,8 @@ def nfp_large_cuda(
     without a separable form (``pearson``, ``mahalanobis``) raises.
     ``attention`` runs the ``dot`` kernel, then a softmax over the
     neighbours, then the pooling. ``nfp_large_cuda.launches`` counts
-    kernel launches (the fused GAP's reduction pass belongs to its launch).
+    kernel launches (the fused GAP is reduced within the launch). The cut of
+    the work is ``_k2_plan``'s.
     """
     kw = dict(p=p, eps=eps, q_scs=q_scs, padding=padding, dilation=dilation,
               padding_mode=padding_mode)

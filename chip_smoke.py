@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
-    python3 chip_smoke.py --parent DIR   # also time DIR's K1 and K2 (another checkout) beside this one's
+    python3 chip_smoke.py --parent DIR   # also time DIR's K1, K2 and K3 (another checkout) beside this one's
 
 Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
 
@@ -19,9 +19,10 @@ Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
    its plan: rows per block, rows per step, columns per tile, lanes per
    position G, channels per staged chunk, staged pixel stride in 16-byte
    vectors) and
-   K3 (``nfp_strip``); with ``--parent``, each K1 and K2 line also gives
-   the other checkout's time on the same input, in turns (parent, this,
-   this, parent), and its ptxas lines are printed;
+   K3 (``nfp_strip``, K2's kernel template with ``pearson`` added, each line
+   with the same plan fields); with ``--parent``, each K1, K2 and K3 line
+   also gives the other checkout's time on the same input, in turns
+   (parent, this, this, parent), and its ptxas lines are printed;
 4. serve ResNet18: a ResNet18 + texture_nfp ``Predictor`` on the card with
    seeded weights answers three requests (1, 32, 45 images), goes through
    K1 once per batch, and matches a CPU ``Predictor`` with the same weights
@@ -54,7 +55,8 @@ Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
    the counterpart of the JAX ``nfp_pallas``, at its four shapes, fused and
    not, with ``cosine`` (K2) and ``pearson`` (K3), plus one 16x16 map (K1);
    the launch counters show each route, every output is held against the
-   plain version, and kernel and plain times are printed per shape.
+   plain version, and kernel and plain times are printed per shape beside
+   the bound.
 
 Any failure raises and the exit code is non-zero. The last two lines are a
 JSON record of each kernel and the ``{"ok": true, ...}`` line.
@@ -95,6 +97,14 @@ def median_ms(fn, runs=RUNS):
     CUDA events, queued behind a GPU sleep (``tools/common.py``)."""
     from neighbour_feature_pooling_tpu_torch.tools.common import median_ms as timed
     return timed(fn, runs, warmup=3)
+
+
+def bound_ms(n_bytes, n_flops):
+    """The least time the card could take for work that moves ``n_bytes``
+    and does ``n_flops`` fp32 operations: the larger of bytes at 3.35 TB/s
+    and operations at 67 TFLOP/s, in ms, and which of the two it is."""
+    bytes_ms, flops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / FP32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
 def bf16_ulp(v):
@@ -224,7 +234,7 @@ def check_kernel(wrapper, cases, main_label, nfp_reference, num_neighbors, nfp_o
     """Every case against the plain version; returns the main-path case's row.
     A case's kwargs may add ``offset`` (added to the random input) and
     ``constant`` (one random pixel repeated over the whole map).
-    ``note(shape, dtype, radius, kw)`` adds text to a case's line; ``parent``,
+    ``note(shape, dtype, measure, radius, kw)`` adds text to a case's line; ``parent``,
     the same wrapper from another checkout, is timed beside the kernel on the
     same input, in turns (parent, kernel, kernel, parent)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -278,10 +288,9 @@ def check_kernel(wrapper, cases, main_label, nfp_reference, num_neighbors, nfp_o
                      * nfp_output_size(w, radius, 1, pad, dil))
         n_bytes = x.numel() * x.element_size() + out.numel() * out.element_size()
         n_flops = b * positions * num_neighbors(radius) * c * FLOPS_PER_TERM[measure]
-        bytes_ms, flops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / FP32_FLOPS_PER_S * 1e3
-        row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=max(bytes_ms, flops_ms),
-                   bound_by="bytes" if bytes_ms >= flops_ms else "operations")
-        extra = "" if note is None else "  " + note(shape, dtype, radius, kw)
+        bound, bound_by = bound_ms(n_bytes, n_flops)
+        row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by)
+        extra = "" if note is None else "  " + note(shape, dtype, measure, radius, kw)
         if parent is not None:
             extra += (f"  parent {parent_ms[0] * 1e3:.2f} / {parent_ms[1] * 1e3:.2f} us, "
                       f"kernel again {k2_ms * 1e3:.2f} us")
@@ -299,13 +308,21 @@ K3_MAIN = "tap 1 B=32 float32 pearson"
 def k3_cases():
     """(label, shape, dtype, measure, kwargs) for the strip kernel K3: maps
     above 256 positions, ``pearson`` (the measure ``nfp_kernel`` sends it)
-    at the bench shapes and geometry corners, then other stat-free
-    measures run on K3 directly."""
+    at the bench shapes, one and 128 images, chunked channels and geometry
+    corners, then other stat-free measures run on K3 directly."""
     gap, pad1 = dict(padding=1, fuse_gap=True), dict(padding=1)
     tap1, mid = (32, 112, 112, 16), (8, 56, 56, 24)
     cases = [
         (K3_MAIN, tap1, torch.float32, "pearson", gap),
         ("tap 1 B=32 float32 pearson map", tap1, torch.float32, "pearson", pad1),
+        ("tap 1 B=1 float32 pearson", (1, 112, 112, 16), torch.float32, "pearson", gap),
+        ("tap 1 B=128 float32 pearson", (128, 112, 112, 16), torch.float32, "pearson", gap),
+        ("C=256 pearson, chunked C", (8, 56, 56, 256), torch.float32, "pearson", gap),
+        ("C=256 pearson map, chunked C", (8, 56, 56, 256), torch.float32, "pearson", pad1),
+        ("C=512 bfloat16 pearson, chunked C", (4, 56, 56, 512), torch.bfloat16, "pearson",
+         gap),
+        ("C=270 pearson map, scalar loads, chunked C", (4, 56, 56, 270), torch.float32,
+         "pearson", pad1),
         ("resnet_layer1 pearson", (16, 56, 56, 64), torch.float32, "pearson", gap),
         ("resnet_layer1 pearson map", (16, 56, 56, 64), torch.float32, "pearson", pad1),
         ("pearson similarity=False", mid, torch.float32, "pearson",
@@ -819,17 +836,23 @@ def kernel_entry(launches, bench, nfp_kernel, nfp_reference):
           f"(max |err| {worst:.3e})")
     for m in ("cosine", "pearson"):
         for r in bench.run(m, iters=RUNS):
+            # R=1, padding 1: an H x W output map of 8 neighbours, fp32
+            positions = r["B"] * r["H"] * r["W"]
+            out_numel = 8 * (r["B"] if r["fuse_gap"] else positions)
+            bound, bound_by = bound_ms(4 * (positions * r["C"] + out_numel),
+                                       positions * 8 * r["C"] * FLOPS_PER_TERM[m])
             print(f"  {m:8s} {r['route']} {r['shape']:14s} ({r['B']},{r['H']},{r['W']},{r['C']}) "
                   f"fuse_gap={r['fuse_gap']!s:5s} kernel {r['kernel_ms'] * 1e3:9.2f} us  "
-                  f"plain {r['plain_ms'] * 1e3:9.2f} us  max|err| {r['max_err']:.3e}")
+                  f"plain {r['plain_ms'] * 1e3:9.2f} us  bound {bound * 1e3:6.2f} us "
+                  f"({bound_by})  max|err| {r['max_err']:.3e}")
     return counts
 
 
 def load_parent(path):
     """``ops.nfp_cuda`` of another checkout of this repository (for example
     the parent commit, unpacked with ``git archive``), imported under the
-    package name ``parent_port`` so both versions load side by side; its K1
-    and K2 build into that checkout's ``csrc/_build``, and ptxas' register
+    package name ``parent_port`` so both versions load side by side; its K1,
+    K2 and K3 build into that checkout's ``csrc/_build``, and ptxas' register
     and spill lines for them are printed."""
     import importlib
     import importlib.util
@@ -840,7 +863,7 @@ def load_parent(path):
     sys.modules["parent_port"] = module
     spec.loader.exec_module(module)
     cuda = importlib.import_module("parent_port.ops.nfp_cuda")
-    for kernel, log in cuda._build.build_all(["nfp_small", "nfp_large"]).items():
+    for kernel, log in cuda._build.build_all(["nfp_small", "nfp_large", "nfp_strip"]).items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  parent {kernel}: {line.strip()}")
@@ -851,8 +874,8 @@ def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="another checkout of the repository: time its K1 and K2 beside "
-                         "this one's")
+                    help="another checkout of the repository: time its K1, K2 and K3 "
+                         "beside this one's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device and none is available")
@@ -888,14 +911,17 @@ def main():
     parent = None if args.parent is None else load_parent(args.parent)
 
     def planned(plan_fn, fmt):
-        def note(shape, dtype, radius, kw):
+        def note(shape, dtype, measure, radius, kw):
             b, h, w, c = shape
             pad, dil = kw.get("padding", 0), kw.get("dilation", 1)
             return fmt(plan_fn(b, h, w, c, nfp_output_size(h, radius, 1, pad, dil),
-                               nfp_output_size(w, radius, 1, pad, dil), radius, dil, dtype))
+                               nfp_output_size(w, radius, 1, pad, dil), radius, dil, dtype,
+                               measure=measure))
         return note
 
-    k1_plan = planned(_k1_plan, lambda p: f"rows={p.rows} G={p.group} chunk={p.chunk}")
+    k1_plan = planned(lambda *a, measure: _k1_plan(*a),  # one plan for every measure
+                      lambda p: f"rows={p.rows} G={p.group} chunk={p.chunk}")
+    # K2 and K3 share the template and the plan
     k2_plan = planned(_k2_plan, lambda p: f"rows={p.rows} step={p.step} cols={p.cols} "
                                           f"G={p.group} chunk={p.chunk} stride={p.stride}")
 
@@ -913,7 +939,8 @@ def main():
     print("kernels: nfp_strip (K3) against nfp_reference on the card "
           "(fp32 rtol=atol=1e-5; bf16 within one bf16 ulp)")
     rows["nfp_strip"] = check_kernel(nfp_strip_cuda, k3_cases(), K3_MAIN,
-                                     nfp_reference, num_neighbors, nfp_output_size)
+                                     nfp_reference, num_neighbors, nfp_output_size,
+                                     note=k2_plan, parent=parent and parent.nfp_strip_cuda)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,5 +1,6 @@
 // NFP measure arithmetic and staging helpers shared by the CUDA kernels
-// nfp_small.cu (K1), nfp_large.cu (K2) and nfp_strip.cu (K3).
+// nfp_small.cu (K1) and nfp_strips.cuh (the strip kernel of K2, nfp_large.cu,
+// and K3, nfp_strip.cu).
 //
 // Every measure but pearson and mahalanobis is a sum over channels of
 // per-channel terms (up to three accumulators) followed by a scalar tail:
@@ -223,62 +224,6 @@ __device__ __forceinline__ float apply_finalize(const Args& a, float v) {
     case NEG_IF_DIST: return a.similarity ? v : -v;
     default: return a.similarity ? v : 1.f - v;
   }
-}
-
-// The finalized measure between two pixels, computed by one whole warp
-// (lanes over channels); every lane returns it. pearson takes two passes,
-// channel means first, as the centred form in measures.py does. Used by
-// nfp_strip.cu (K3).
-template <typename T>
-__device__ float pair_value(const T* pc, const T* pn, const Args& a,
-                            int lane) {
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  if (a.measure == PEARSON) {
-    for_channels(pc, pn, a, lane, 32, [&](float c, float n) { s0 += c; s1 += n; });
-    const float mc = warp_sum(s0) / a.C;
-    const float mn = warp_sum(s1) / a.C;
-    s0 = s1 = 0.f;
-    for_channels(pc, pn, a, lane, 32, [&](float c, float n) {
-      const float cc = c - mc, nc = n - mn;
-      s0 += cc * nc; s1 += cc * cc; s2 += nc * nc;
-    });
-  } else {
-    for_channels(pc, pn, a, lane, 32,
-                 [&](float c, float n) { add_terms(a, c, n, s0, s1, s2); });
-  }
-  s0 = warp_sum(s0);
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  return apply_finalize(a, finish(a, s0, s1, s2));
-}
-
-// Second pass of K3's fused GAP (nfp_strip.cu; K2 reduces in the same order
-// within its launch): one block per image sums the per-tile partials
-// (B, n_tiles, N) and divides by the position count; a warp takes a
-// neighbour, its lanes the tiles lane, lane + 32, ... in order, then a fixed
-// xor tree. A fixed order, no atomics, so the result repeats bit for bit.
-constexpr int kGapThreads = 256;
-
-__global__ void __launch_bounds__(kGapThreads)
-gap_reduce(const float* __restrict__ partial, float* __restrict__ out, int n_tiles,
-           int n_nb, int n_pos) {
-  const long long b = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int nb = warp; nb < n_nb; nb += kGapThreads / 32) {
-    float s = 0.f;
-    for (int t = lane; t < n_tiles; t += 32) s += partial[(b * n_tiles + t) * n_nb + nb];
-    s = warp_sum(s);
-    if (lane == 0) out[b * n_nb + nb] = s / (float)n_pos;
-  }
-}
-
-inline int launch_gap_reduce(const void* partial, void* out, int batch,
-                             int n_tiles, int n_nb, int n_pos,
-                             cudaStream_t stream) {
-  gap_reduce<<<batch, kGapThreads, 0, stream>>>(static_cast<const float*>(partial),
-                                                static_cast<float*>(out), n_tiles,
-                                                n_nb, n_pos);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace nfp

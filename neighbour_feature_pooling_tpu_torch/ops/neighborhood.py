@@ -8,7 +8,8 @@ slices of one padded NHWC tensor; the (B, H, W, N, C) neighbor tensor is
 never materialized.
 
 This is the semantics oracle: the CUDA kernels (``csrc/nfp_small.cu``,
-``csrc/nfp_large.cu``) are held against it, and the CPU path runs it.
+``csrc/nfp_large.cu``, ``csrc/nfp_strip.cu``) are held against it, and the
+CPU path runs it.
 
 * neighbor ordering: row-major kernel taps minus the center;
 * padding: applied symmetrically before extraction, default ``reflect``,

@@ -10,7 +10,9 @@ Counterpart of ``neighbour_feature_pooling_tpu/ops/nfp_pallas.py``.
   separable measures of ``measures.SEPARABLE``, optional fused GAP).
 * ``nfp_strip_cuda`` wraps ``csrc/nfp_strip.cu`` (K3), the Hopper port of
   the strip-mined NHWC TPU kernel ``_nfp_kernel`` (any map size, stride 1,
-  every stat-free measure, ``pearson`` included, optional fused GAP).
+  every stat-free measure, ``pearson`` included, optional fused GAP). K2
+  and K3 are instances of one kernel template, ``csrc/nfp_strips.cuh``, cut
+  by one plan, ``_k2_plan``.
 * On a CPU tensor each wrapper runs the plain version,
   ``neighborhood.nfp_reference``; on a CUDA tensor it launches its kernel
   or raises.
@@ -141,21 +143,21 @@ def _k1_chunk(rows, C, Wo, radius, dilation, dtype):
                      f"{rows}-row window of a {Wo}-wide map in shared memory")
 
 
-#: K2's block size (``csrc/nfp_large.cu::kThreads``), the centre-pixel
-#: floats one lane holds in registers (``kLaneFloats``), the shared memory a
-#: K2 block may take (two blocks fit on one SM, as its ~110 registers a
-#: thread allow: 228 KB, 1 KB of it reserved per block), the blocks a launch
-#: should give the card (three for every two of the H100's 132 SMs) and the
-#: most steps of rows a block takes
+#: K2's and K3's block size (``csrc/nfp_strips.cuh::kThreads``), the
+#: centre-pixel floats one lane holds in registers (``kLaneFloats``), the
+#: shared memory a block may take (the most that lets two blocks share an
+#: SM, as their ≤128 registers a thread allow: (228 KB − 1 KB reserved per
+#: block) / 2), the blocks a launch should give the card (three for every
+#: two of the H100's 132 SMs) and the most steps of rows a block takes
 _K2_THREADS = 256
 _K2_LANE_FLOATS = 16
-_K2_SMEM_BUDGET = 112 * 1024
+_K2_SMEM_BUDGET = 113 * 1024
 _K2_MIN_BLOCKS = 198
 _K2_MAX_ITERS = 4
 
 
 class K2Plan(NamedTuple):
-    """How K2 cuts one launch: ``rows`` output rows per block, taken
+    """How K2 and K3 cut one launch: ``rows`` output rows per block, taken
     ``step`` rows at a time, over ``cols`` output columns (``n_strips`` ×
     ``n_cols`` blocks per image), ``chunk`` channels staged at a time,
     ``group`` lanes per output position, ``stride`` 16-byte vectors per
@@ -171,18 +173,25 @@ class K2Plan(NamedTuple):
     smem_bytes: int
 
 
-def _k2_smem_bytes(rows, step, cols, stride, radius, dilation) -> int:
-    """Shared memory of one K2 block (``csrc/nfp_large.cu::smem_layout``):
+def _k2_smem_bytes(rows, step, cols, stride, radius, dilation, pixel_floats=1) -> int:
+    """Shared memory of one K2 or K3 block (``csrc/nfp_strips.cuh::smem_layout``):
     the ring of staged window rows (an iteration's ``step`` + span rows, and
-    the next iteration's ``step`` while they load), a tail per ring pixel,
-    an iteration's pair values, the window's source rows and columns, the
+    the next iteration's ``step`` while they load), ``pixel_floats`` floats
+    per ring pixel (its tail; ``pearson`` also keeps its mean), an
+    iteration's pair values, the window's source rows and columns, the
     neighbour offsets, the block's GAP sums and a flag."""
     k = 2 * radius + 1
     span = (k - 1) * dilation
     n_pix = ((2 * step if rows > step else step) + span) * (cols + span)
-    return (n_pix * stride * 16 + _align16(n_pix * 4)
+    return (n_pix * stride * 16 + pixel_floats * _align16(n_pix * 4)
             + _align16(step * cols * (k * k - 1) * 4)
             + _align16((rows + span + cols + span + 3 * (k * k - 1) + 1) * 4))
+
+
+def _k2_pixel_floats(measure) -> int:
+    """Floats K2 and K3 keep per staged pixel for ``measure``: its tail, and
+    for ``pearson`` also its channel mean."""
+    return 2 if get_measure(measure).name == "pearson" else 1
 
 
 def _k2_stride(units, group):
@@ -196,11 +205,13 @@ def _k2_stride(units, group):
     return stride
 
 
-def _k2_plan(B, H, W, C, Ho, Wo, radius, dilation, dtype) -> K2Plan:
-    """K2's cut of a (B, H, W, C) map with an Ho × Wo output.
+def _k2_plan(B, H, W, C, Ho, Wo, radius, dilation, dtype, measure="cosine") -> K2Plan:
+    """K2's and K3's cut of a (B, H, W, C) map with an Ho × Wo output for
+    ``measure``, which sets the floats kept per staged pixel (two for
+    ``pearson``: its mean and centred sum of squares; one otherwise).
 
     * ``chunk``: all C channels where a one-row full-width strip fits the
-      112 KB budget and a lane's registers (16 floats, at most 32 lanes), else
+      113 KB budget and a lane's registers (16 floats, at most 32 lanes), else
       the largest divisor of C that does (a multiple of the 16-byte vector
       where C is one), so every chunk is full.
     * ``group``: the fewest lanes per position (a power of two up to 32)
@@ -224,9 +235,13 @@ def _k2_plan(B, H, W, C, Ho, Wo, radius, dilation, dtype) -> K2Plan:
     §6): longer steps and fewer, longer-lived blocks won at every
     B=32 and B=128 tap, down to 224 blocks at B=32 (1.7 a SM; 448 blocks
     were 7–12% slower), and the fewest lanes per position won everywhere.
+    With ``pearson`` (``--measure pearson``) the same held; its 16-row
+    blocks at 112², which need the full two-block share of 113 KB for the
+    pixel means, beat 4-row ones by 15%.
     """
     del H, W  # the window depends on the output map and the padding only
     vec = 4 if dtype == torch.float32 else 8  # elements per 16 bytes
+    pixel_floats = _k2_pixel_floats(measure)
     slots = _K2_LANE_FLOATS // vec  # 16-byte vectors a lane holds
     chunks = [C // n for n in range(1, C + 1)
               if C % n == 0 and not (C % vec == 0 and (C // n) % vec)
@@ -238,15 +253,15 @@ def _k2_plan(B, H, W, C, Ho, Wo, radius, dilation, dtype) -> K2Plan:
             group = next(g for g in (1, 2, 4, 8, 16, 32) if -(-units // g) <= slots)
             stride = _k2_stride(units, group)
             fits = [st for st in range(1, Ho + 1) if _k2_smem_bytes(
-                st, st, cols, stride, radius, dilation) <= _K2_SMEM_BUDGET]
+                st, st, cols, stride, radius, dilation, pixel_floats) <= _K2_SMEM_BUDGET]
             if fits:
                 break
         if fits or cols == 1:
             break
         cols = -(-cols // 2)
     if not fits:
-        raise ValueError(f"nfp_large_cuda: no strip of a {Wo}-wide map with C={C} fits "
-                         f"K2's shared memory budget")
+        raise ValueError(f"no strip of a {Wo}-wide map with C={C} fits the shared memory "
+                         f"budget of K2 and K3")
     n_cols = -(-Wo // cols)
     n_groups = _K2_THREADS // group
 
@@ -257,10 +272,11 @@ def _k2_plan(B, H, W, C, Ho, Wo, radius, dilation, dtype) -> K2Plan:
     step = next((st for st in busy if 2 * st * cols >= 3 * n_groups), busy[-1]) if busy else 1
     iters = [n for n in range(2, min(_K2_MAX_ITERS, -(-Ho // step)) + 1)
              if blocks(n * step) >= _K2_MIN_BLOCKS and _k2_smem_bytes(
-                 n * step, step, cols, stride, radius, dilation) <= _K2_SMEM_BUDGET]
+                 n * step, step, cols, stride, radius, dilation,
+                 pixel_floats) <= _K2_SMEM_BUDGET]
     rows = step * (max(iters) if iters and chunk == C else 1)
     return K2Plan(rows, step, cols, -(-Ho // rows), n_cols, chunk, group, stride,
-                  _k2_smem_bytes(rows, step, cols, stride, radius, dilation))
+                  _k2_smem_bytes(rows, step, cols, stride, radius, dilation, pixel_floats))
 
 
 def kernel_supported(measure: str, stride: int) -> bool:
@@ -270,17 +286,17 @@ def kernel_supported(measure: str, stride: int) -> bool:
 
 #: the pointers each kernel's C entry takes first, and the plan integers it
 #: takes after the common arguments
-_POINTERS = {"nfp_small": 2, "nfp_large": 4, "nfp_strip": 3}
-_PLAN_INTS = {"nfp_small": 3, "nfp_large": 6, "nfp_strip": 0}
+_POINTERS = {"nfp_small": 2, "nfp_large": 4, "nfp_strip": 4}
+_PLAN_INTS = {"nfp_small": 3, "nfp_large": 6, "nfp_strip": 6}
 
 
 @functools.lru_cache(maxsize=None)
 def _library_fn(name: str):
     """``<name>_forward`` of ``csrc/<name>.cu`` with its ctypes signature:
     K1 takes its plan (rows, chunk, group) and reduces its fused GAP within
-    one launch; K2 takes its plan (rows, step, cols, chunk, group, stride), a
-    partial-sum buffer and arrival counters, and reduces its fused GAP within
-    one launch too; K3 takes a partial-sum buffer for its second pass."""
+    one launch; K2 and K3 take their plan (rows, step, cols, chunk, group,
+    stride), a partial-sum buffer and arrival counters, and reduce their
+    fused GAP within one launch too."""
     lib = _build.load_library(name)
     fn = getattr(lib, f"{name}_forward")
     fn.argtypes = ([ctypes.c_void_p] * _POINTERS[name]
@@ -290,18 +306,11 @@ def _library_fn(name: str):
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _tile_positions(name: str) -> int:
-    fn = getattr(_build.load_library(name), f"{name}_tile_positions")
-    fn.restype = ctypes.c_int
-    return fn()
-
-
 _ARRIVALS = {}
 
 
 def _arrival_counters(device, batch):
-    """K2's arrival counters for the current stream of ``device``: ``batch``
+    """K2's and K3's arrival counters for the current stream of ``device``: ``batch``
     or more int32 zeros, kept between launches (each launch's last block per
     image resets its counter), one buffer per stream so that launches on two
     streams never share one."""
@@ -353,18 +362,13 @@ def _launch(name, x, radius, m, *, similarity, p, eps, q_scs, padding,
     if name == "nfp_small":
         k1 = _k1_plan(b, h, w, c, h_out, w_out, radius, dilation, x.dtype)
         plan = (k1.rows, k1.chunk, k1.group)
-    else:
-        if name == "nfp_large":
-            k2 = _k2_plan(b, h, w, c, h_out, w_out, radius, dilation, x.dtype)
-            plan = (k2.rows, k2.step, k2.cols, k2.chunk, k2.group, k2.stride)
-            n_tiles = k2.n_strips * k2.n_cols
-        else:
-            n_tiles = -(-h_out * w_out // _tile_positions(name))
-        partial = (torch.empty((b, n_tiles, n), dtype=torch.float32, device=x.device)
-                   if fuse_gap else None)
+    else:  # K2 and K3: one kernel template, one plan
+        k2 = _k2_plan(b, h, w, c, h_out, w_out, radius, dilation, x.dtype, m.name)
+        plan = (k2.rows, k2.step, k2.cols, k2.chunk, k2.group, k2.stride)
+        partial = (torch.empty((b, k2.n_strips * k2.n_cols, n), dtype=torch.float32,
+                               device=x.device) if fuse_gap else None)
         ptrs.append(None if partial is None else partial.data_ptr())
-        if name == "nfp_large":
-            ptrs.append(_arrival_counters(x.device, b).data_ptr() if fuse_gap else None)
+        ptrs.append(_arrival_counters(x.device, b).data_ptr() if fuse_gap else None)
     vec_width = 4 if x.dtype == torch.float32 else 8  # elements per 16 bytes
     vec = int(c % vec_width == 0 and x.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
@@ -502,8 +506,9 @@ def nfp_strip_cuda(
     either device, as the TPU body does: it needs per-sample statistics,
     which only the plain version computes. ``attention`` runs the ``dot``
     kernel, then a softmax over the neighbours, then the pooling.
-    ``nfp_strip_cuda.launches`` counts kernel launches (the fused GAP's
-    reduction pass belongs to its launch).
+    ``nfp_strip_cuda.launches`` counts kernel launches (the fused GAP is
+    reduced within the launch). The cut of the work is ``_k2_plan``'s for
+    the measure: K3 runs K2's kernel template, with ``pearson`` added.
     """
     kw = dict(p=p, eps=eps, q_scs=q_scs, padding=padding, dilation=dilation,
               padding_mode=padding_mode)

@@ -31,11 +31,11 @@ JAX_NFP = importlib.import_module("neighbour_feature_pooling_tpu.ops.nfp_pallas"
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def _plan(shape, radius=1, padding=1, dilation=1, dtype=torch.float32):
+def _plan(shape, radius=1, padding=1, dilation=1, dtype=torch.float32, measure="cosine"):
     b, h, w, c = shape
     ho = nfp_output_size(h, radius, 1, padding, dilation)
     wo = nfp_output_size(w, radius, 1, padding, dilation)
-    return _k2_plan(b, h, w, c, ho, wo, radius, dilation, dtype), ho, wo
+    return _k2_plan(b, h, w, c, ho, wo, radius, dilation, dtype, measure), ho, wo
 
 
 #: (B, H, W, C, padding) -> (rows, step, G): the MobileNetV3 stage taps and
@@ -66,8 +66,7 @@ def test_k2_plan_main_shapes(key):
         assert plan.n_strips * plan.n_cols * 32 >= _K2_MIN_BLOCKS >= 1.5 * 132
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k2_plan_budget_registers_and_banks(dtype):
+def check_plan_rules(dtype, measure="cosine"):
     """Across the GEOMETRY maps, each at its own C and at 96, 128 and 256:
     shared memory within the budget, whole chunks (of whole 16-byte vectors
     where C has them), a lane's share of a pixel within its 16 floats, and a
@@ -78,7 +77,7 @@ def test_k2_plan_budget_registers_and_banks(dtype):
                        if kw.get("data_format") == "NCHW" else shape)
         for c in (c0, 96, 128, 256):
             plan, ho, wo = _plan((b, h, w, c), kw["radius"], kw["padding"],
-                                 kw.get("dilation", 1), dtype)
+                                 kw.get("dilation", 1), dtype, measure)
             label = f"{name} C={c}"
             units = -(-plan.chunk // vec)
             assert plan.smem_bytes <= _K2_SMEM_BUDGET, label
@@ -94,6 +93,11 @@ def test_k2_plan_budget_registers_and_banks(dtype):
             assert plan.chunk == c or plan.rows == plan.step, label  # a pass per chunk
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_plan_budget_registers_and_banks(dtype):
+    check_plan_rules(dtype)
+
+
 def test_k2_plan_chunks_wide_channels():
     """C=256 at 56² does not fit a one-row strip whole: it is staged in 2
     chunks of 128, one step of one row a block; C=96 fits whole with 8
@@ -104,7 +108,7 @@ def test_k2_plan_chunks_wide_channels():
     assert (plan.chunk, plan.group) == (96, 8)
 
 
-def _window(x, oh0, ow0, rows, cols, padding, padding_mode):
+def window(x, oh0, ow0, rows, cols, padding, padding_mode):
     """The padded window a K2 block stages: rows oh0 - padding on and
     columns ow0 - padding on, through pad_index; zeros where it gives -1."""
     _, h, w, _ = x.shape
@@ -141,15 +145,16 @@ def _block_values(win, radius, dilation, measure, chunk, cfg, similarity):
     return get_measure(measure).finalize(torch.stack(vals, -1), similarity)
 
 
-def _emulate_k2(x, radius, measure, *, padding, dilation, padding_mode, fuse_gap,
-                similarity=True, p=1.0, eps=1e-6, q_scs=1e-6):
-    """K2's plan in torch: per (strip, column tile) block and per step of
-    rows in it, stage the padded window, take its values and sum them; add
-    a block's step sums in step order, and the blocks' in block order."""
+def emulate_k2(x, radius, measure, *, padding, dilation, padding_mode, fuse_gap,
+               similarity=True, p=1.0, eps=1e-6, q_scs=1e-6, block_values=_block_values):
+    """K2's plan in torch (K3's with ``block_values`` for pearson): per
+    (strip, column tile) block and per step of rows in it, stage the padded
+    window, take its values and sum them; add a block's step sums in step
+    order, and the blocks' in block order."""
     b, h, w, c = x.shape
     ho = nfp_output_size(h, radius, 1, padding, dilation)
     wo = nfp_output_size(w, radius, 1, padding, dilation)
-    plan = _k2_plan(b, h, w, c, ho, wo, radius, dilation, x.dtype)
+    plan = _k2_plan(b, h, w, c, ho, wo, radius, dilation, x.dtype, measure)
     cfg = MeasureConfig(eps=eps, p=p, q_scs=q_scs)
     span = 2 * radius * dilation
     out = torch.empty((b, ho, wo, (2 * radius + 1) ** 2 - 1))
@@ -161,9 +166,9 @@ def _emulate_k2(x, radius, measure, *, padding, dilation, padding_mode, fuse_gap
             block = None
             for h0 in range(oh0, oh0 + rows, plan.step):
                 st = min(plan.step, oh0 + rows - h0)
-                win = _window(x, h0, ow0, st + span, cols + span, padding, padding_mode)
-                vals = _block_values(win, radius, dilation, measure, plan.chunk, cfg,
-                                     similarity)
+                win = window(x, h0, ow0, st + span, cols + span, padding, padding_mode)
+                vals = block_values(win, radius, dilation, measure, plan.chunk, cfg,
+                                    similarity)
                 assert vals.shape[1:3] == (st, cols)
                 out[:, h0:h0 + st, ow0:ow0 + cols] = vals
                 step_sum = vals.flatten(1, 2).sum(1)
@@ -207,7 +212,7 @@ def test_k2_plan_emulation_matches_jax(case, monkeypatch):
     for name, value in patch.items():
         monkeypatch.setattr(nfp_cuda, name, value)
     x = np.random.default_rng(11).standard_normal(shape).astype(np.float32)
-    got, plan = _emulate_k2(torch.from_numpy(x), radius, measure, **kw)
+    got, plan = emulate_k2(torch.from_numpy(x), radius, measure, **kw)
     if case == "chunked_scs_zeros":
         assert plan.chunk < shape[3]
     if case == "column_tiles_norm_circular":

@@ -7,6 +7,10 @@ for ``pearson`` on maps above 256 positions; the port's ``nfp_kernel`` on a
 CPU tensor runs its plain version. The CUDA kernel runs only on the card
 (``chip_smoke.py`` holds it against the plain version there). Which body
 ``nfp_pallas`` picks is read by tracing it with the three bodies wrapped.
+K3 is K2's kernel template cut by ``_k2_plan``: the plan is checked for
+``pearson`` here, and a torch emulation of K3's cut for ``pearson`` (strips,
+steps, column tiles, channel chunks, each pixel's mean and centred sum of
+squares taken chunk by chunk) is held against ``nfp_pallas``.
 
 Tolerance: ``test_nfp_parity.py``'s kernel bar, atol 2e-5 / rtol 1e-5
 (sums are taken in other orders); bf16 within one bf16 ulp.
@@ -27,8 +31,12 @@ from neighbour_feature_pooling_tpu_torch.ops import (
     nfp_small_cuda,
     nfp_strip_cuda,
 )
-from neighbour_feature_pooling_tpu_torch.ops.nfp_cuda import _kernel_route
+from neighbour_feature_pooling_tpu_torch.ops import nfp_cuda
+from neighbour_feature_pooling_tpu_torch.ops.measures import get_measure
+from neighbour_feature_pooling_tpu_torch.ops.nfp_cuda import (
+    _K2_SMEM_BUDGET, _k2_plan, _k2_smem_bytes, _kernel_route)
 from neighbour_feature_pooling_tpu_torch.tools import bench_nfp_kernel, sweep_nfp_kernel
+from test_torch_nfp_large import check_plan_rules, emulate_k2
 
 JAX_NFP = importlib.import_module("neighbour_feature_pooling_tpu.ops.nfp_pallas")
 TOL = dict(atol=2e-5, rtol=1e-5)
@@ -218,3 +226,104 @@ def test_bench_tool_writes_records_on_cpu(tmp_path):
     assert [(r["shape"], r["fuse_gap"], r["route"]) for r in recs] == [
         ("mnv3_stage3", True, "k3"), ("mnv3_stage3", False, "k3")]
     assert all(r["kernel_ms"] is None and r["max_err"] == 0.0 for r in recs)
+
+
+def test_k3_plan_counts_the_means(monkeypatch):
+    """Pearson keeps a mean beside each staged pixel's tail: at the first
+    MobileNetV3 tap (B=32) its block takes one float more per ring pixel
+    than cosine's, and still gets cosine's 16-row strips within the
+    two-block budget; with 1 KB less it drops to 4-row blocks."""
+    b, s, c = 32, 112, 16
+    cos = _k2_plan(b, s, s, c, s, s, 1, 1, torch.float32, "cosine")
+    pea = _k2_plan(b, s, s, c, s, s, 1, 1, torch.float32, "pearson")
+    assert (pea.rows, pea.step, pea.group, pea.chunk) == (cos.rows, cos.step, cos.group, c)
+    assert (pea.rows, pea.step) == (16, 4)
+    ring_pixels = (2 * pea.step + 2) * (s + 2)
+    assert pea.smem_bytes == cos.smem_bytes + ring_pixels * 4
+    assert pea.smem_bytes == _k2_smem_bytes(16, 4, s, pea.stride, 1, 1, pixel_floats=2)
+    assert cos.smem_bytes <= _K2_SMEM_BUDGET - 1024 < pea.smem_bytes <= _K2_SMEM_BUDGET
+    monkeypatch.setattr(nfp_cuda, "_K2_SMEM_BUDGET", _K2_SMEM_BUDGET - 1024)
+    assert _k2_plan(b, s, s, c, s, s, 1, 1, torch.float32, "cosine") == cos
+    assert _k2_plan(b, s, s, c, s, s, 1, 1, torch.float32, "pearson").rows == 4
+
+
+def test_k3_plan_chunks_wide_channels():
+    """C=256 at 56² is staged in 2 chunks of 128 for pearson as for cosine,
+    one step of one row a block."""
+    plan = _k2_plan(8, 56, 56, 256, 56, 56, 1, 1, torch.float32, "pearson")
+    assert (plan.chunk, plan.group, plan.rows, plan.step) == (128, 8, 1, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_plan_budget_registers_and_banks(dtype):
+    check_plan_rules(dtype, "pearson")
+
+
+def _pearson_block_values(win, radius, dilation, measure, chunk, cfg, similarity):
+    """K3's pearson values (B, rows, cols, N) on one block's staged window:
+    each pixel's channel sum (its mean), then its centred sum of squares
+    (its tail), and each pair's centred products, every sum taken chunk by
+    chunk in chunk order; the tail s0 / sqrt(tc * tn + eps)."""
+    assert measure == "pearson"
+    _, wr, wc, c = win.shape
+    span, r = 2 * radius * dilation, radius * dilation
+    rows, cols = wr - span, wc - span
+    chunks = [win[..., c0:c0 + chunk] for c0 in range(0, c, chunk)]
+    mean = (sum(part.sum(-1) for part in chunks) / c)[..., None]
+    centred = [part - mean for part in chunks]
+    tail = sum((part * part).sum(-1) for part in centred)
+    k = 2 * radius + 1
+    cen = (slice(None), slice(r, r + rows), slice(r, r + cols))
+    vals = []
+    for i in range(k):
+        for j in range(k):
+            if (i, j) == (radius, radius):
+                continue
+            nb = (slice(None), slice(i * dilation, i * dilation + rows),
+                  slice(j * dilation, j * dilation + cols))
+            s0 = sum((part[cen] * part[nb]).sum(-1) for part in centred)
+            vals.append(s0 / torch.sqrt(tail[cen] * tail[nb] + cfg.eps))
+    return get_measure(measure).finalize(torch.stack(vals, -1), similarity)
+
+
+#: shape, kwargs, plan constants patched (a block target that lets a small
+#: batch take taller, ragged strips and steps; a shared-memory budget that
+#: makes the plan chunk C or cut columns)
+K3_EMULATION_CASES = {
+    "20x20_gap": ((2, 20, 20, 16), dict(radius=1, padding=1, fuse_gap=True), {}),
+    "17x19_ragged_strip_map": ((1, 17, 19, 24), dict(radius=1, padding=1),
+                               {"_K2_MIN_BLOCKS": 4}),
+    "ragged_step_gap": ((2, 22, 20, 40), dict(radius=1, padding=1, fuse_gap=True),
+                        {"_K2_MIN_BLOCKS": 4}),
+    "r2_dilation2_map": ((2, 20, 20, 16), dict(radius=2, padding=4, dilation=2), {}),
+    "chunked_zeros_gap": ((2, 20, 20, 32), dict(radius=1, padding=1, padding_mode="zeros",
+                                                fuse_gap=True), {"_K2_SMEM_BUDGET": 6144}),
+    "column_tiles_circular_map": ((1, 20, 24, 8), dict(radius=1, padding=2,
+                                                       padding_mode="circular"),
+                                  {"_K2_SMEM_BUDGET": 2048}),
+    "offset3_map": ((2, 20, 20, 16), dict(radius=1, padding=1, offset=3.0), {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K3_EMULATION_CASES))
+def test_k3_pearson_emulation_matches_jax(case, monkeypatch):
+    shape, kw, patch = K3_EMULATION_CASES[case]
+    kw = dict(dict(dilation=1, padding_mode="reflect", fuse_gap=False), **kw)
+    radius, offset = kw.pop("radius"), kw.pop("offset", 0.0)
+    for name, value in patch.items():
+        monkeypatch.setattr(nfp_cuda, name, value)
+    x = _x(shape, seed=13, offset=offset)
+    assert _kernel_route(shape, radius, "pearson", kw["padding"], kw["dilation"]) == "k3"
+    got, plan = emulate_k2(torch.from_numpy(x), radius, "pearson",
+                           block_values=_pearson_block_values, **kw)
+    if case == "chunked_zeros_gap":
+        assert plan.chunk < shape[3]
+    if case == "column_tiles_circular_map":
+        assert plan.n_cols > 1
+    if case == "17x19_ragged_strip_map":
+        assert 17 % plan.rows and plan.n_strips > 1  # a ragged last strip
+    if case == "ragged_step_gap":
+        assert plan.rows > plan.step and 22 % plan.step  # a ragged last step
+    want = _jax(x, radius, "pearson", **kw)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **TOL)

@@ -56,12 +56,30 @@ Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
    not, with ``cosine`` (K2) and ``pearson`` (K3), plus one 16x16 map (K1);
    the launch counters show each route, every output is held against the
    plain version, and kernel and plain times are printed per shape beside
-   the bound.
+   the bound;
+10. train: (a) one train step (``train.engine.train_step``) of ResNet18 +
+   texture_nfp (21 classes, 224 px, B=8, fp32, TF32 off) on the card and on
+   the CPU from the same seeded weights and batch: loss within 1e-4, the
+   heads' gradients within 1e-4 of each tensor's largest magnitude, the new
+   BatchNorm running statistics within 1e-5, every gradient against a CPU
+   fp64 step no further off (largest and median tensor) than twice the CPU
+   fp32 step's own error (``train_parity`` says why), and K1 launched once
+   by the step (the NFP backward launches nothing: it differentiates the
+   plain version); the same for MobileNetV3-Large + multi_stage_nfp (K2
+   three times, K1 twice); (b) the train-step rate at B=32 and B=128 on batches
+   resident on the card (median of 20 steps after 3, CUDA events), the
+   peak memory, the step split into forward, backward and optimizer, the
+   NFP backward alone, and a torch.profiler device-busy share and kernels
+   per step; (c) the CLI, ``cli.main`` on synthetic data at 224 px, B=32,
+   one epoch, in a temporary directory, then a ``Predictor`` serving one
+   request from the run's ``best`` checkpoint.
 
 Any failure raises and the exit code is non-zero. The last two lines are a
 JSON record of each kernel and the ``{"ok": true, ...}`` line.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -361,7 +379,9 @@ def device_profile(fn, steps=5):
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a user annotation's device span (Optimizer.step, say) overlaps its kernels
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / steps
@@ -848,6 +868,222 @@ def kernel_entry(launches, bench, nfp_kernel, nfp_reference):
     return counts
 
 
+def _events_ms(fn, runs=20, warmup=3):
+    """Median wall time of ``fn`` on the card in ms: CUDA events around each
+    of ``runs`` calls after ``warmup`` (one sync at the end, so the host's
+    launch time shows wherever it holds the card back)."""
+    for _ in range(warmup):
+        fn()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(runs)]
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+#: the heads' parameters: no BatchNorm or ReLU stands between them and the
+#: loss, so their gradients are well conditioned in fp32
+HEAD_PARAMS = ("fc.", "pool.nfp_proj.", "nfp_proj.")
+
+
+def _grad_errors(grads, exact):
+    """Per tensor, max |g - exact| over max |exact|, the latter floored at
+    1e-6 of the largest |exact| of all tensors: a bias that feeds a
+    train-mode BatchNorm has a gradient of exactly zero, which fp32 reads
+    as rounding noise."""
+    floor = 1e-6 * max(float(v.abs().max()) for v in exact.values())
+    return {n: float((g.double() - exact[n]).abs().max()) / max(float(exact[n].abs().max()),
+                                                                floor)
+            for n, g in grads.items()}
+
+
+def train_parity(launches, engine, get_model, model_type, variant, want):
+    """One train step on the card, on the CPU in fp32 and on the CPU in fp64
+    from the same seeded weights and batch (21 classes, 224 px, B=8): the
+    loss, the new BatchNorm running statistics and the head's gradients of
+    the card against the CPU's fp32 step; the gradients of every tensor of
+    the card and of the CPU's fp32 step against the fp64 step; and the
+    step's kernel launches. Returns the launches.
+
+    Why the fp64 step: at 224 px the backbone's gradients are not
+    computable to 1e-4 in fp32 on either device (a ReLU mask that flips
+    on one rounding, BatchNorm's cancellations in the backward): the
+    CPU's own fp32 step is up to a few 1e-2 of a tensor's largest
+    gradient off its fp64 step. So the card is held to the CPU's fp32
+    accuracy: over all tensors, the largest and the median error against
+    the fp64 step at most twice the CPU's fp32 step's."""
+    tag = f"train parity {model_type} + {variant}"
+    states = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.float32), ("fp64", torch.float64)):
+        model = get_model(model_type, variant, 21).to(device="cpu" if dev == "fp64" else dev,
+                                                      memory_format=torch.channels_last)
+        states[dev] = engine.create_train_state(model, 11, 1e-3)
+        model.to(dtype)
+    rng = np.random.default_rng(12)
+    host = {"image": torch.from_numpy(rng.standard_normal((8, 224, 224, 3)).astype(np.float32)),
+            "label": torch.from_numpy(rng.integers(0, 21, 8)),
+            "weight": torch.ones(8)}
+    batch = {k: v.to("cuda") for k, v in host.items()}
+    launches.reset()
+    loss, _ = engine.train_step(states["cuda"], batch, 21)
+    torch.cuda.synchronize()
+    counts = launches.read()
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, expected {want}")
+    t0 = time.perf_counter()
+    cpu_loss, _ = engine.train_step(states["cpu"], host, 21)
+    cpu_s = time.perf_counter() - t0
+    engine.train_step(states["fp64"], {"image": host["image"].double(), "label": host["label"],
+                                       "weight": host["weight"].double()}, 21)
+    loss_err = abs(float(loss) - float(cpu_loss))
+    if loss_err > 1e-4:
+        raise AssertionError(f"{tag}: loss {float(loss)} vs the CPU's {float(cpu_loss)}")
+
+    def grads(dev):
+        return {n: p.grad.cpu() for n, p in states[dev].model.named_parameters()}
+
+    card, cpu, exact = grads("cuda"), grads("cpu"), grads("fp64")
+    head_err = 0.0
+    for name in card:
+        if name.startswith(HEAD_PARAMS):
+            err = float((card[name] - cpu[name]).abs().max()) / max(
+                float(cpu[name].abs().max()), 1e-30)
+            if err > 1e-4:
+                raise AssertionError(f"{tag}: grad of {name} off the CPU's by {err:.3e} of "
+                                     f"its max")
+            head_err = max(head_err, err)
+    card_err, cpu_err = _grad_errors(card, exact), _grad_errors(cpu, exact)
+    summary = {}
+    for stat, fn in (("max", max), ("median", lambda v: float(np.median(list(v))))):
+        summary[stat] = (fn(card_err.values()), fn(cpu_err.values()))
+        if summary[stat][0] > 2 * summary[stat][1]:
+            raise AssertionError(f"{tag}: {stat} gradient error against the fp64 step "
+                                 f"{summary[stat][0]:.3e}, above twice the CPU fp32 step's "
+                                 f"{summary[stat][1]:.3e}")
+    worst = max(card_err, key=card_err.get)
+    cpu_sd = states["cpu"].model.state_dict()
+    stat_err = 0.0
+    for name, v in states["cuda"].model.state_dict().items():
+        if name.endswith(("running_mean", "running_var")):
+            if not torch.allclose(v.cpu(), cpu_sd[name], rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"{tag}: {name} differs from the CPU's beyond 1e-5")
+            stat_err = max(stat_err, float((v.cpu() - cpu_sd[name]).abs().max()))
+    print(f"{tag}: one train step, card against CPU (CPU fp32 step {cpu_s:.2f} s): loss "
+          f"{float(loss):.6f}, |dloss| {loss_err:.3e} (<= 1e-4); head grads within "
+          f"{head_err:.3e} of each tensor's max (<= 1e-4); BatchNorm running stats within "
+          f"{stat_err:.3e} (<= 1e-5); every grad against the CPU fp64 step, relative to each "
+          f"tensor's max: card max {summary['max'][0]:.3e} ({worst}), median "
+          f"{summary['median'][0]:.3e}; CPU fp32 max {summary['max'][1]:.3e}, median "
+          f"{summary['median'][1]:.3e} (the card's at most 2x); launches {counts}")
+    return counts
+
+
+def train_rate(engine, get_model, nfp_reference, device_profile_fn):
+    """ResNet18 + texture_nfp train steps at full width on batches resident
+    on the card: img/s, peak memory, the step's split and its device share."""
+    for b in (32, 128):
+        model = get_model("resnet18", "texture_nfp", 21).to(
+            device="cuda", memory_format=torch.channels_last)
+        state = engine.create_train_state(model, 13, 1e-4)
+        gen = torch.Generator(device="cuda").manual_seed(14)
+        batch = {"image": torch.randn((b, 224, 224, 3), generator=gen, device="cuda"),
+                 "label": torch.randint(0, 21, (b,), generator=gen, device="cuda"),
+                 "weight": torch.ones(b, device="cuda")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = _events_ms(lambda: engine.train_step(state, batch, 21))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        params = [p for _, p in state.params]
+
+        def forward():
+            model.train()
+            return engine.cross_entropy_loss(model(batch["image"]), batch["label"],
+                                             batch["weight"])
+
+        fwd_ms = _events_ms(forward)
+        fwd_bwd_ms = _events_ms(lambda: torch.autograd.grad(forward(), params))
+        opt_ms = _events_ms(state.optimizer.step)
+        with torch.no_grad():
+            model.eval()
+            fmap = model.backbone(batch["image"])
+        xg = fmap.detach().requires_grad_(True)
+        g = torch.randn((b, 8), generator=gen, device="cuda")
+
+        def nfp_backward():
+            return torch.autograd.grad(nfp_reference(xg, 1, "cosine", padding=1, fuse_gap=True),
+                                       xg, g)
+
+        nfp_bwd_ms = _events_ms(nfp_backward)
+        print(f"train rate: ResNet18 + texture_nfp, 21 classes, 224 px, B={b}, fp32 (TF32 off): "
+              f"{step_ms:.3f} ms/step = {b / step_ms * 1e3:.1f} img/s (median of 20 after 3, "
+              f"CUDA events); peak memory {peak:.2f} GiB; forward + loss {fwd_ms:.3f} ms, "
+              f"backward {fwd_bwd_ms - fwd_ms:.3f} ms (forward + backward {fwd_bwd_ms:.3f}), "
+              f"Adam {opt_ms:.3f} ms; the NFP backward alone (plain recompute + autograd on "
+              f"({b},7,7,512)) {nfp_bwd_ms:.3f} ms = {nfp_bwd_ms / step_ms:.1%} of the step")
+        busy, n_kernels, by_name = device_profile_fn(lambda: engine.train_step(state, batch, 21))
+        if not n_kernels:
+            print(f"train rate B={b}: torch.profiler recorded no device events: device time "
+                  f"not measured")
+            continue
+        print(f"train rate B={b}: torch.profiler: {n_kernels:.0f} kernels per step, "
+              f"{busy:.3f} ms of device time per step ({1 - busy / step_ms:.1%} of the "
+              f"{step_ms:.3f} ms step idle); most time: " + top3(by_name))
+        del model, state, batch, fmap, xg
+        torch.cuda.empty_cache()
+
+
+def train_cli(launches, cli, Predictor):
+    """The training entry point: ``cli.main`` on synthetic data at 224 px,
+    B=32, one epoch, in a temporary directory; then a ``Predictor`` on the
+    run's ``best`` answers one request. Returns the launches of both."""
+    argv = ["--dataset", "synthetic", "--model_type", "resnet18", "--model_variant",
+            "texture_nfp", "--input_size", "224", "--batch_size", "32", "--max_epochs", "1",
+            "--seeds", "7", "--num_samples", "160", "--learning_rate", "1e-3"]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        out = io.StringIO()
+        try:
+            launches.reset()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                cli.main(argv)
+            cli_s = time.perf_counter() - t0
+            best = os.path.join(d, "checkpoints", "synthetic", "exp_seed7", "best")
+            for name in ("best", "last"):
+                path = os.path.join(os.path.dirname(best), name + ".pt")
+                if not os.path.exists(path):
+                    raise AssertionError(f"train cli: {path} was not written")
+            pred = Predictor("resnet18", "texture_nfp", 4, checkpoint=best, batch_size=32,
+                             input_size=224, resize_size=224, device="cuda")
+            request = [np.random.default_rng(15).random((240, 260, 3), dtype=np.float32)
+                       for _ in range(3)]
+            res = pred.predict(request)
+            counts = launches.read()
+        finally:
+            os.chdir(cwd)
+    text = out.getvalue()
+    final = [line for line in text.splitlines() if "Final Test Accuracy" in line]
+    if not final:
+        raise AssertionError("train cli: no 'Final Test Accuracy' line:\n" + text[-2000:])
+    probs = res["probabilities"]
+    if probs.shape != (3, 4) or not np.isfinite(probs).all():
+        raise AssertionError(f"train cli: the Predictor gave {probs.shape}, finite "
+                             f"{np.isfinite(probs).all()}")
+    # 112 train images: 3 steps of 32; one val, one test and one served batch
+    if counts != dict(nfp_small=6, nfp_large=0, nfp_strip=0, int8_gemm=0, int8_conv=0):
+        raise AssertionError(f"train cli: launches {counts}; expected K1 six times (3 train "
+                             f"steps, one val, one test and one served batch) and no other")
+    print(f"train cli: cli.main(synthetic, resnet18, texture_nfp, 224 px, B=32, 1 epoch, 160 "
+          f"samples) in {cli_s:.2f} s: {final[0].strip()}; best and last written; a "
+          f"Predictor on best answered 3 images, labels {res['label'].tolist()}; launches "
+          f"{counts}")
+    return counts
+
+
 def load_parent(path):
     """``ops.nfp_cuda`` of another checkout of this repository (for example
     the parent commit, unpacked with ``git archive``), imported under the
@@ -892,6 +1128,9 @@ def main():
         _k1_plan, _k2_plan, nfp, nfp_kernel, nfp_large_cuda, nfp_small_cuda, nfp_strip_cuda)
     from neighbour_feature_pooling_tpu_torch.tools import bench_nfp_kernel
     from neighbour_feature_pooling_tpu_torch.serve import Predictor
+    from neighbour_feature_pooling_tpu_torch import cli
+    from neighbour_feature_pooling_tpu_torch.models import get_model
+    from neighbour_feature_pooling_tpu_torch.train import engine
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -955,6 +1194,13 @@ def main():
     other_mobilenetv3_variants(Predictor, launches)
     per_path.append(serve_resnet18_int8(Predictor, launches))
     per_path.append(kernel_entry(launches, bench_nfp_kernel, nfp_kernel, nfp_reference))
+    none = dict(nfp_small=0, nfp_large=0, nfp_strip=0, int8_gemm=0, int8_conv=0)
+    per_path.append(train_parity(launches, engine, get_model, "resnet18", "texture_nfp",
+                                 dict(none, nfp_small=1)))
+    per_path.append(train_parity(launches, engine, get_model, "mobilenetv3", "multi_stage_nfp",
+                                 dict(none, nfp_small=2, nfp_large=3)))
+    train_rate(engine, get_model, nfp_reference, device_profile)
+    per_path.append(train_cli(launches, cli, Predictor))
     counts = {k: sum(p[k] for p in per_path) for k in rows}
 
     sources = dict(nfp_small=("neighbour_feature_pooling_tpu_torch/csrc/nfp_small.cu",

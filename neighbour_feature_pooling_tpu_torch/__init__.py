@@ -15,8 +15,11 @@ Ported so far: the serving path (``serve.Predictor``) of ResNet18 ×
 ``texture_nfp``, ``texture_nfp_intermediate``, ``mid_nfp``,
 ``multi_stage_nfp``, ``nfp_insert``}, with the small-map and large-map
 NFP kernels; and int8 serving (``quant.py``, ``Predictor(quantize="int8")``)
-with the int8 GEMM and conv kernels. See ``ROADMAP.md`` for what is still
-to come.
+with the int8 GEMM and conv kernels; and training on one device
+(``train/``, ``data/``, ``cli.py``: ``python -m
+neighbour_feature_pooling_tpu_torch.cli``), where ``ops.nfp`` runs its
+kernel forward and differentiates the plain version backward. See
+``ROADMAP.md`` for what is still to come.
 """
 
 __version__ = "0.1.0"

@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..batchnorm import BatchNorm2d
+
 __all__ = ["MobileNetV3Large", "BLOCK_OUT_CHANNELS", "hard_swish", "hard_sigmoid"]
 
 
@@ -92,9 +94,9 @@ BLOCK_OUT_CHANNELS = (16, 24, 40, 80, 112, 160, 960)
 _TAP_STAGES = (0, 1, 2, 4, 6)
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
+def _bn(channels: int) -> BatchNorm2d:
     # flax momentum 0.9 (weight of the old running value) = torch 0.1
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 def _act(name: str):

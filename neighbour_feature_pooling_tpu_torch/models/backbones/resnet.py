@@ -18,12 +18,14 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..batchnorm import BatchNorm2d
+
 __all__ = ["BasicBlock", "ResNet", "resnet18"]
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
+def _bn(channels: int) -> BatchNorm2d:
     # flax momentum 0.9 (weight of the old running value) = torch 0.1
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock(nn.Module):

@@ -29,7 +29,7 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax", "torch_module_name"]
+__all__ = ["state_dict_from_flax", "torch_module_name", "flax_module_path"]
 
 _PARAM_LEAVES = {"scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
@@ -69,6 +69,39 @@ def torch_module_name(path: Tuple[str, ...]) -> str:
     "layer2_0", "downsample_conv")`` → ``"backbone.layer2.0.downsample.0"``
     (the keys of the JAX ``quant`` dicts → the port's)."""
     return _module_key(tuple(path))
+
+
+_UNRENAMES = {v: k for k, v in _RENAMES.items()}
+_UNSTAGE0 = {v: k for k, v in _STAGE0.items()}
+
+
+def flax_module_path(name: str) -> Tuple[str, ...]:
+    """The JAX layer path of a port module name, the inverse of
+    ``torch_module_name``: ``"backbone.layer2.0.downsample.0"`` →
+    ``("backbone", "layer2_0", "downsample_conv")``."""
+    parts, path, i = name.split("."), [], 0
+    while i < len(parts):
+        for n in (4, 2):  # the renamed keys span 4 ("blocks.6.0.conv") or 2 parts
+            key = ".".join(parts[i:i + n])
+            if key in _UNRENAMES:
+                path.append(_UNRENAMES[key])
+                i += n
+                break
+        else:
+            p = parts[i]
+            if re.fullmatch(r"layer\d+", p) and i + 1 < len(parts) and parts[i + 1].isdigit():
+                path.append(f"{p}_{parts[i + 1]}")
+                i += 2
+            elif p == "blocks" and i + 2 < len(parts):
+                path.append(f"blocks_{parts[i + 1]}_{parts[i + 2]}")
+                i += 3
+                if parts[i - 2] == "0" and i < len(parts):  # a stage-0 block's child
+                    path.append(_UNSTAGE0[parts[i]])
+                    i += 1
+            else:
+                path.append(p)
+                i += 1
+    return tuple(path)
 
 
 def _param(name: str, value: np.ndarray) -> Tuple[str, np.ndarray]:

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..ops import nfp, num_neighbors
+from .batchnorm import BatchNorm2d
 
 __all__ = ["gap2d", "NFPPoolingHead", "NFPProject"]
 
@@ -53,7 +54,7 @@ class _ConvBNReLU(nn.Module):
     def __init__(self, in_channels: int, features: int):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, features, 1, bias=False)
-        self.bn = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm2d(features, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x.permute(0, 3, 1, 2)  # NHWC bytes seen as channels_last NCHW

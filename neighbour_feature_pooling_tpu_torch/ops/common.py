@@ -9,14 +9,36 @@ import torch
 __all__ = ["dequant_epilogue", "safe_sqrt"]
 
 
-def safe_sqrt(s: torch.Tensor) -> torch.Tensor:
-    """``sqrt``; the JAX version also pins the derivative at 0 to 0.
+class _SafeSqrt(torch.autograd.Function):
+    """``sqrt`` whose derivative is ``0.5 / sqrt(s)`` where ``s > 0`` and 0 at
+    ``s == 0`` (the JAX custom JVP, ops/common.py:11-38)."""
 
-    Only the forward is ported: it is exactly ``torch.sqrt``. The zero
-    subgradient at 0 (torch's norm convention, which the JAX version
-    restores with a custom JVP) comes with the training slice.
+    @staticmethod
+    def forward(ctx, s):
+        y = torch.sqrt(s)
+        ctx.save_for_backward(s, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        s, y = ctx.saved_tensors
+        pos = s > 0
+        deriv = torch.where(pos, 0.5 / torch.where(pos, y, torch.ones_like(y)),
+                            torch.zeros_like(y))
+        return deriv * g
+
+
+def safe_sqrt(s: torch.Tensor) -> torch.Tensor:
+    """``sqrt`` with a zero derivative at exactly 0 (torch's norm
+    subgradient convention, which the JAX version restores with a custom
+    JVP).
+
+    The plain derivative ``0.5/sqrt(s)`` is inf at 0, and any later masking
+    (``clamp(norm, eps)``) multiplies that inf by a zero cotangent into NaN:
+    an all-zero feature channel would poison a whole training step. The
+    forward is exactly ``torch.sqrt``.
     """
-    return torch.sqrt(s)
+    return _SafeSqrt.apply(s)
 
 
 def dequant_epilogue(acc: torch.Tensor, scale: torch.Tensor,

@@ -27,9 +27,12 @@ Counterpart of ``neighbour_feature_pooling_tpu/ops/nfp_pallas.py``.
   that reaches K3.
 
 There is no fallback: a CUDA input a kernel should take either launches it
-or raises. Gradients through the kernels come with the training slice (an
-``autograd.Function`` whose backward differentiates the plain version), so
-a CUDA input that requires grad raises for now.
+or raises. Gradients: ``nfp`` on a CUDA input that requires grad runs its
+kernel inside an ``autograd.Function`` (``_KernelForward``) whose backward
+recomputes the plain version on the saved input and differentiates it, the
+recipe of the JAX ``_nfp_bwd`` (``jax.vjp`` of the XLA oracle); the
+backward launches no kernel. The kernel wrappers themselves have no
+backward and raise on an input that needs one.
 """
 
 from __future__ import annotations
@@ -338,8 +341,9 @@ def _launch(name, x, radius, m, *, similarity, p, eps, q_scs, padding,
         raise ValueError(f"{name}_cuda needs a contiguous NHWC tensor")
     if torch.is_grad_enabled() and x.requires_grad:
         raise NotImplementedError(
-            "the NFP kernels have no backward yet (training slice, ROADMAP.md "
-            "Queue 1 item 2); run under torch.no_grad()/inference_mode()")
+            f"{name}_cuda has no backward: differentiate through ops.nfp, whose "
+            "autograd.Function runs this kernel forward and the plain version "
+            "backward")
     if padding_mode not in PAD_MODES:
         raise ValueError(f"Unsupported padding_mode {padding_mode!r}; "
                          f"one of {sorted(PAD_MODES)}")
@@ -547,6 +551,38 @@ def _route(shape, radius, measure, stride, padding, dilation, data_format,
     return "kernel" if small_map else "k2"
 
 
+class _KernelForward(torch.autograd.Function):
+    """``forward(x)`` = ``kernel(x)``, ``backward`` = the vector-Jacobian
+    product of ``nfp_reference(x, **ref_kw)``, recomputed on the saved
+    input under ``torch.enable_grad()`` (JAX ``_nfp_bwd``,
+    nfp_pallas.py:647-661)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, ref_kw):
+        ctx.save_for_backward(x)
+        ctx.ref_kw = ref_kw
+        return kernel(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            out = nfp_reference(xx, **ctx.ref_kw)
+            (dx,) = torch.autograd.grad(out, xx, g)
+        return dx, None, None
+
+
+def _differentiable(x, kernel, ref_kw):
+    """``kernel(x)`` (a callable of the input alone, which computes what
+    ``nfp_reference(x, **ref_kw)`` does), made differentiable through the
+    plain version when ``x`` needs a gradient; a plain call otherwise, so
+    inference runs exactly the kernel."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _KernelForward.apply(x, kernel, ref_kw)
+    return kernel(x)
+
+
 def nfp(
     x: torch.Tensor,
     radius: int = 1,
@@ -565,25 +601,32 @@ def nfp(
     """Neighborhood Feature Pooling (same signature as the JAX ``nfp``).
 
     See ``neighborhood.nfp_reference`` for the argument semantics and the
-    module docstring for where each input runs.
+    module docstring for where each input runs. Differentiable on either
+    device: on the CPU and on the ``"reference"`` route autograd
+    differentiates the plain version directly; on the card the kernel runs
+    forward and the plain version's autograd backward.
     """
-    ref_kw = dict(similarity=similarity, p=p, eps=eps, q_scs=q_scs,
-                  stride=stride, padding=padding, dilation=dilation,
-                  padding_mode=padding_mode, data_format=data_format,
-                  fuse_gap=fuse_gap)
+    ref_kw = dict(radius=radius, measure=measure, similarity=similarity, p=p,
+                  eps=eps, q_scs=q_scs, stride=stride, padding=padding,
+                  dilation=dilation, padding_mode=padding_mode,
+                  data_format=data_format, fuse_gap=fuse_gap)
     route = _route(tuple(x.shape), radius, measure, stride, padding, dilation,
                    data_format, fuse_gap)
     if x.device.type != "cuda" or route == "reference":
-        return nfp_reference(x, radius, measure, **ref_kw)
-    xh = x.permute(0, 2, 3, 1) if data_format == "NCHW" else x
-    kernel = nfp_large_cuda if route == "k2" else nfp_small_cuda
-    out = kernel(
-        xh.contiguous(), radius, measure, similarity=similarity, p=p, eps=eps,
-        q_scs=q_scs, padding=padding, dilation=dilation,
-        padding_mode=padding_mode, fuse_gap=fuse_gap)
-    if not fuse_gap and data_format == "NCHW":
-        out = out.permute(0, 3, 1, 2)
-    return out
+        return nfp_reference(x, **ref_kw)
+    wrapper = nfp_large_cuda if route == "k2" else nfp_small_cuda
+
+    def kernel(xx):
+        xh = xx.permute(0, 2, 3, 1) if data_format == "NCHW" else xx
+        out = wrapper(
+            xh.contiguous(), radius, measure, similarity=similarity, p=p, eps=eps,
+            q_scs=q_scs, padding=padding, dilation=dilation,
+            padding_mode=padding_mode, fuse_gap=fuse_gap)
+        if not fuse_gap and data_format == "NCHW":
+            out = out.permute(0, 3, 1, 2)
+        return out
+
+    return _differentiable(x, kernel, ref_kw)
 
 
 def _kernel_route(shape, radius, measure, padding, dilation, chw_body="auto") -> str:

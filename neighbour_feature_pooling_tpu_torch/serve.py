@@ -33,6 +33,7 @@ from .data.transforms import TransformConfig, eval_transform
 from .models import get_model, init_params
 from .quant import (QuantConfig, build_bn_folding, build_int8_chains,
                     calibrate_act_scales, prequantize_weights, quantize_model)
+from .train.checkpoint import checkpoint_exists, restore_for_inference
 
 __all__ = ["Predictor"]
 
@@ -46,6 +47,11 @@ def _resolve_device(device: str) -> torch.device:
 
 
 def _load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The model weights of ``path``: a ``train.save_checkpoint`` prefix
+    (``<path>.pt`` exists), as the JAX ``Predictor`` takes, or a bare
+    ``torch.save``d state_dict file."""
+    if checkpoint_exists(path):
+        return restore_for_inference(path)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -56,7 +62,8 @@ class Predictor:
     model_type: str
     model_variant: str
     num_classes: int
-    checkpoint: Optional[str] = None      # a torch.save'd state_dict; None:
+    checkpoint: Optional[str] = None      # a save_checkpoint prefix or a
+    #                                       torch.save'd state_dict; None:
     #                                       weights from torch.Generator seed 0
     batch_size: int = 32
     input_size: int = 224

@@ -32,7 +32,11 @@ Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
    ones (3 and 2 launches per batch), with the forward split into the
    backbone and the NFP taps + projections + fc;
 6. the other MobileNetV3 variants: one batch each on the card against the
-   CPU, with each one's launch counts;
+   CPU, with each one's launch counts; then ResNet50 + texture_nfp and
+   ViT-Tiny + texture_nfp served as ResNet18 is (K1 on the (B,7,7,2048) and
+   (B,14,14,192) head maps, once per batch), and ResNet18 + nfp_at_layer at
+   taps 3, 2 and 0 (one batch each against the CPU; K1 1, 1 and 0 times:
+   the tap-0 map runs the plain version);
 7. int8 kernels: K4 (``int8_gemm``) and K5 (``int8_conv``) against their
    plain versions on the card, bit for bit (``torch.equal``), at every
    ResNet18 shape of int8 serving at B=32 and some at B=128, on ragged
@@ -63,10 +67,13 @@ Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
    heads' gradients within 1e-4 of each tensor's largest magnitude, the new
    BatchNorm running statistics within 1e-5, every gradient against a CPU
    fp64 step no further off (largest and median tensor) than twice the CPU
-   fp32 step's own error (``train_parity`` says why), and K1 launched once
+   fp32 step's own error, floored at fp32 rounding, 1e-6 (``train_parity``
+   says why), and K1 launched once
    by the step (the NFP backward launches nothing: it differentiates the
    plain version); the same for MobileNetV3-Large + multi_stage_nfp (K2
-   three times, K1 twice); (b) the train-step rate at B=32 and B=128 on batches
+   three times, K1 twice), ResNet50 + texture_nfp and ViT-Tiny +
+   texture_nfp (K1 once each); (b) for ResNet18, ResNet50 and ViT-Tiny +
+   texture_nfp, the train-step rate at B=32 and B=128 on batches
    resident on the card (median of 20 steps after 3, CUDA events), the
    peak memory, the step split into forward, backward and optimizer, the
    NFP backward alone, and a torch.profiler device-busy share and kernels
@@ -74,7 +81,8 @@ Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
    one epoch, in a temporary directory, then a ``Predictor`` serving one
    request from the run's ``best`` checkpoint.
 
-Any failure raises and the exit code is non-zero. The last two lines are a
+Each phase prints its wall seconds. Any failure raises and the exit code is
+non-zero. The last two lines are a
 JSON record of each kernel and the ``{"ok": true, ...}`` line.
 """
 
@@ -182,6 +190,17 @@ def k1_cases():
          dict(padding=2, padding_mode="zeros")),
         ("pearson 16x16, 256 positions", (8, 16, 16, 64), torch.float32, "pearson",
          dict(padding=1, fuse_gap=True)),
+    ]
+    for b in (32, 128):  # the heads of the ResNet50 and ViT-Tiny paths
+        cases += [(f"resnet50 head B={b}", (b, 7, 7, 2048), torch.float32, "cosine",
+                   dict(padding=1, fuse_gap=True)),
+                  (f"vittiny head B={b}", (b, 14, 14, 192), torch.float32, "cosine",
+                   dict(padding=1, fuse_gap=True))]
+    cases += [  # ResNet18 nfp_at_layer: the zoo's padding 0, the map form
+        ("nfp_at_layer idx 3 map, padding 0", (32, 7, 7, 512), torch.float32, "cosine",
+         dict(padding=0)),
+        ("nfp_at_layer idx 2 map, padding 0", (32, 14, 14, 256), torch.float32, "cosine",
+         dict(padding=0)),
     ]
     return cases
 
@@ -454,31 +473,44 @@ class Launches:
         return self.wrappers["int8_conv"].s8_launches
 
 
-def serve_resnet18(Predictor, launches):
-    """The first slice's main path; returns its launches of each kernel."""
-    kw = dict(model_type="resnet18", model_variant="texture_nfp", num_classes=21,
+def head_map(model, x):
+    """The NHWC map a texture model's head reads: the backbone's output,
+    ViT's tokens through ``tokens_to_map``."""
+    from neighbour_feature_pooling_tpu_torch.models.backbones.vit import tokens_to_map
+    fmap = model.backbone(x)
+    return tokens_to_map(fmap) if model.model_type == "vittiny" else fmap
+
+
+def serve_texture_nfp(Predictor, launches, model_type="resnet18", seed=0):
+    """A backbone + texture_nfp ``Predictor`` (the first slice's main path
+    on ResNet18; ResNet50 and ViT-Tiny in the twelfth): three requests, K1
+    once per batch, the CPU's answers, then the forward rate split into
+    the backbone and the NFP head + fc. Returns its launches of each
+    kernel."""
+    tag = f"serve {model_type}"
+    kw = dict(model_type=model_type, model_variant="texture_nfp", num_classes=21,
               batch_size=32, input_size=224)
     t0 = time.perf_counter()
     pred = Predictor(**kw, device="cuda")
-    print(f"serve resnet18: Predictor(resnet18, texture_nfp, 21 classes, batch_size=32, "
+    print(f"{tag}: Predictor({model_type}, texture_nfp, 21 classes, batch_size=32, "
           f"224 px) on cuda in {time.perf_counter() - t0:.2f} s")
-    requests = requests_of(np.random.default_rng(0))
+    requests = requests_of(np.random.default_rng(seed))
     pred.predict(requests[0])  # warm-up: cuDNN plans, first launches
 
     launches.reset()
-    outs, lat = answer(pred, requests, "serve resnet18")
+    outs, lat = answer(pred, requests, tag)
     counts = launches.read()
 
     expected = sum(-(-len(r) // 32) for r in requests)
     if counts != dict(nfp_small=expected, nfp_large=0, nfp_strip=0, int8_gemm=0, int8_conv=0):
-        raise AssertionError(f"serve resnet18: launches {counts}, expected "
+        raise AssertionError(f"{tag}: launches {counts}, expected "
                              f"nfp_small {expected} (= batches) and no other")
     pre = []
     for req in requests:
         t0 = time.perf_counter()
         pred.preprocess(req)
         pre.append(time.perf_counter() - t0)
-    print(f"serve resnet18: requests of {[len(r) for r in requests]} images answered in "
+    print(f"{tag}: requests of {[len(r) for r in requests]} images answered in "
           f"{[round(t * 1e3, 2) for t in lat]} ms, of which host preprocessing "
           f"{[round(t * 1e3, 2) for t in pre]} ms; launches {counts}")
     batch = pred.preprocess(requests[1])
@@ -488,32 +520,33 @@ def serve_resnet18(Predictor, launches):
     copy_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     pred.predict(batch, preprocessed=True)
-    print(f"serve resnet18: one preprocessed batch of 32: predict "
+    print(f"{tag}: one preprocessed batch of 32: predict "
           f"{(time.perf_counter() - t0) * 1e3:.2f} ms, while a host-to-device copy of its "
           f"{batch.nbytes / 1e6:.1f} MB alone takes {copy_s * 1e3:.2f} ms")
     match_cpu(Predictor, pred, kw, [(pred.preprocess(r), o) for r, o in zip(requests, outs)],
-              "serve resnet18")
+              tag)
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     model = pred.model
     for b in (32, 128):
         x = torch.randn((b, 224, 224, 3), generator=gen, device="cuda")
         with torch.inference_mode():
-            fmap = model.backbone(x)
+            fmap = head_map(model, x)
             ms = median_ms(lambda: model(x), runs=20)
-            backbone_ms = median_ms(lambda: model.backbone(x), runs=20)
+            backbone_ms = median_ms(lambda: head_map(model, x), runs=20)
             head_ms = median_ms(lambda: model.fc(model.pool(fmap)), runs=20)
             busy, n_kernels, by_name = device_profile(lambda: model(x))
-        print(f"serve resnet18: forward B={b} fp32 {ms:.3f} ms/batch = {b / ms * 1e3:.1f} img/s; "
+        print(f"{tag}: forward B={b} fp32 {ms:.3f} ms/batch = {b / ms * 1e3:.1f} img/s; "
               f"backbone {backbone_ms:.3f} ms, NFP head + fc {head_ms:.3f} ms "
               f"(median of 20, CUDA events)")
         if not n_kernels:
-            print(f"serve resnet18: forward B={b} torch.profiler recorded no device events: "
+            print(f"{tag}: forward B={b} torch.profiler recorded no device events: "
                   f"device time not measured")
             continue
-        print(f"serve resnet18: forward B={b} torch.profiler: {n_kernels:.0f} kernels, "
+        k1 = sum(t for n, t in by_name.items() if "nfp_small" in n)
+        print(f"{tag}: forward B={b} torch.profiler: {n_kernels:.0f} kernels, "
               f"{busy:.3f} ms of device time per forward ({1 - busy / ms:.1%} of the "
-              f"{ms:.3f} ms forward idle); most time: " + top3(by_name))
+              f"{ms:.3f} ms forward idle), K1 {k1:.3f} ms; most time: " + top3(by_name))
     return counts
 
 
@@ -591,6 +624,33 @@ def other_mobilenetv3_variants(Predictor, launches):
                                  f"expected {MNV3_LAUNCHES[variant]}")
         print(f"variant mobilenetv3/{variant}: K2 launches {got[0]}, K1 launches {got[1]}")
         match_cpu(Predictor, pred, kw, [(x, out)], f"variant mobilenetv3/{variant}")
+
+
+#: ResNet18 nfp_at_layer: K1 launches per batch by nfp_layer_idx (224 px,
+#: padding 0: 5x5 and 12x12 maps on K1; layer1's 54x54 map at C=64 is past
+#: K2's cap and runs the plain version)
+NFP_AT_LAYER_LAUNCHES = {3: 1, 2: 1, 0: 0}
+
+
+def nfp_at_layer(Predictor, launches):
+    """One batch of 8 of ResNet18 + nfp_at_layer at each tap on the card
+    against the CPU, with its launch counts; returns them."""
+    x = np.random.default_rng(16).standard_normal((8, 224, 224, 3)).astype(np.float32)
+    total = None
+    for idx, want in NFP_AT_LAYER_LAUNCHES.items():
+        kw = dict(model_type="resnet18", model_variant="nfp_at_layer", num_classes=21,
+                  batch_size=8, input_size=224, model_kwargs=dict(nfp_layer_idx=idx))
+        pred = Predictor(**kw, device="cuda")
+        launches.reset()
+        out = pred.predict(x, preprocessed=True)
+        counts = launches.read()
+        if counts != dict(nfp_small=want, nfp_large=0, nfp_strip=0, int8_gemm=0, int8_conv=0):
+            raise AssertionError(f"nfp_at_layer idx {idx}: launches {counts}, expected K1 {want} "
+                                 f"and no other")
+        print(f"nfp_at_layer idx {idx}: launches {counts}")
+        match_cpu(Predictor, pred, kw, [(x, out)], f"nfp_at_layer idx {idx}")
+        total = counts if total is None else {k: total[k] + counts[k] for k in total}
+    return total
 
 
 #: K4 cases: (label, M, K, N, forms); the ResNet18 downsample GEMMs at 224 px
@@ -889,6 +949,12 @@ def _events_ms(fn, runs=20, warmup=3):
 HEAD_PARAMS = ("fc.", "pool.nfp_proj.", "nfp_proj.")
 
 
+#: a gradient error below this fraction of a tensor's largest gradient is
+#: the rounding of fp32 sums taken in another order (cuBLAS, cuDNN and the
+#: CPU differ), where the card-to-CPU ratio says nothing
+FP32_ROUNDING = 1e-6
+
+
 def _grad_errors(grads, exact):
     """Per tensor, max |g - exact| over max |exact|, the latter floored at
     1e-6 of the largest |exact| of all tensors: a bias that feeds a
@@ -914,7 +980,9 @@ def train_parity(launches, engine, get_model, model_type, variant, want):
     CPU's own fp32 step is up to a few 1e-2 of a tensor's largest
     gradient off its fp64 step. So the card is held to the CPU's fp32
     accuracy: over all tensors, the largest and the median error against
-    the fp64 step at most twice the CPU's fp32 step's."""
+    the fp64 step at most twice the CPU's fp32 step's, or than
+    ``FP32_ROUNDING`` where the CPU's is below it (a model as well
+    conditioned as ViT-Tiny, whose errors are all rounding)."""
     tag = f"train parity {model_type} + {variant}"
     states = {}
     for dev, dtype in (("cpu", torch.float32), ("cuda", torch.float32), ("fp64", torch.float64)):
@@ -959,10 +1027,10 @@ def train_parity(launches, engine, get_model, model_type, variant, want):
     summary = {}
     for stat, fn in (("max", max), ("median", lambda v: float(np.median(list(v))))):
         summary[stat] = (fn(card_err.values()), fn(cpu_err.values()))
-        if summary[stat][0] > 2 * summary[stat][1]:
+        if summary[stat][0] > 2 * max(summary[stat][1], FP32_ROUNDING):
             raise AssertionError(f"{tag}: {stat} gradient error against the fp64 step "
                                  f"{summary[stat][0]:.3e}, above twice the CPU fp32 step's "
-                                 f"{summary[stat][1]:.3e}")
+                                 f"{summary[stat][1]:.3e} (floored at {FP32_ROUNDING})")
     worst = max(card_err, key=card_err.get)
     cpu_sd = states["cpu"].model.state_dict()
     stat_err = 0.0
@@ -981,11 +1049,12 @@ def train_parity(launches, engine, get_model, model_type, variant, want):
     return counts
 
 
-def train_rate(engine, get_model, nfp_reference, device_profile_fn):
-    """ResNet18 + texture_nfp train steps at full width on batches resident
+def train_rate(engine, get_model, nfp_reference, device_profile_fn, model_type="resnet18"):
+    """Backbone + texture_nfp train steps at full width on batches resident
     on the card: img/s, peak memory, the step's split and its device share."""
+    name = {"resnet18": "ResNet18", "resnet50": "ResNet50", "vittiny": "ViT-Tiny"}[model_type]
     for b in (32, 128):
-        model = get_model("resnet18", "texture_nfp", 21).to(
+        model = get_model(model_type, "texture_nfp", 21).to(
             device="cuda", memory_format=torch.channels_last)
         state = engine.create_train_state(model, 13, 1e-4)
         gen = torch.Generator(device="cuda").manual_seed(14)
@@ -1008,7 +1077,7 @@ def train_rate(engine, get_model, nfp_reference, device_profile_fn):
         opt_ms = _events_ms(state.optimizer.step)
         with torch.no_grad():
             model.eval()
-            fmap = model.backbone(batch["image"])
+            fmap = head_map(model, batch["image"])
         xg = fmap.detach().requires_grad_(True)
         g = torch.randn((b, 8), generator=gen, device="cuda")
 
@@ -1017,18 +1086,19 @@ def train_rate(engine, get_model, nfp_reference, device_profile_fn):
                                        xg, g)
 
         nfp_bwd_ms = _events_ms(nfp_backward)
-        print(f"train rate: ResNet18 + texture_nfp, 21 classes, 224 px, B={b}, fp32 (TF32 off): "
+        print(f"train rate: {name} + texture_nfp, 21 classes, 224 px, B={b}, fp32 (TF32 off): "
               f"{step_ms:.3f} ms/step = {b / step_ms * 1e3:.1f} img/s (median of 20 after 3, "
               f"CUDA events); peak memory {peak:.2f} GiB; forward + loss {fwd_ms:.3f} ms, "
               f"backward {fwd_bwd_ms - fwd_ms:.3f} ms (forward + backward {fwd_bwd_ms:.3f}), "
               f"Adam {opt_ms:.3f} ms; the NFP backward alone (plain recompute + autograd on "
-              f"({b},7,7,512)) {nfp_bwd_ms:.3f} ms = {nfp_bwd_ms / step_ms:.1%} of the step")
+              f"{tuple(fmap.shape)}) {nfp_bwd_ms:.3f} ms = {nfp_bwd_ms / step_ms:.1%} of the "
+              f"step")
         busy, n_kernels, by_name = device_profile_fn(lambda: engine.train_step(state, batch, 21))
         if not n_kernels:
-            print(f"train rate B={b}: torch.profiler recorded no device events: device time "
-                  f"not measured")
+            print(f"train rate {name} B={b}: torch.profiler recorded no device events: "
+                  f"device time not measured")
             continue
-        print(f"train rate B={b}: torch.profiler: {n_kernels:.0f} kernels per step, "
+        print(f"train rate {name} B={b}: torch.profiler: {n_kernels:.0f} kernels per step, "
               f"{busy:.3f} ms of device time per step ({1 - busy / step_ms:.1%} of the "
               f"{step_ms:.3f} ms step idle); most time: " + top3(by_name))
         del model, state, batch, fmap, xg
@@ -1082,6 +1152,14 @@ def train_cli(launches, cli, Predictor):
           f"Predictor on best answered 3 images, labels {res['label'].tolist()}; launches "
           f"{counts}")
     return counts
+
+
+def phase(name, fn, *args, **kwargs):
+    """Run one phase and print its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"phase {name}: {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def load_parent(path):
@@ -1166,41 +1244,52 @@ def main():
 
     print("kernels: nfp_small (K1) against nfp_reference on the card "
           "(fp32 rtol=atol=1e-5; bf16 within one bf16 ulp)")
-    rows = dict(nfp_small=check_kernel(nfp_small_cuda, k1_cases(), "serve B=32 float32 fuse_gap=True",
-                                       nfp_reference, num_neighbors, nfp_output_size,
-                                       note=k1_plan,
-                                       parent=parent and parent.nfp_small_cuda))
+    rows = dict(nfp_small=phase("kernels K1", check_kernel, nfp_small_cuda, k1_cases(),
+                                "serve B=32 float32 fuse_gap=True", nfp_reference,
+                                num_neighbors, nfp_output_size, note=k1_plan,
+                                parent=parent and parent.nfp_small_cuda))
     print("kernels: nfp_large (K2) against nfp_reference on the card "
           "(fp32 rtol=atol=1e-5; bf16 within one bf16 ulp)")
-    rows["nfp_large"] = check_kernel(nfp_large_cuda, k2_cases(), K2_MAIN,
-                                     nfp_reference, num_neighbors, nfp_output_size,
-                                     note=k2_plan, parent=parent and parent.nfp_large_cuda)
+    rows["nfp_large"] = phase("kernels K2", check_kernel, nfp_large_cuda, k2_cases(), K2_MAIN,
+                              nfp_reference, num_neighbors, nfp_output_size,
+                              note=k2_plan, parent=parent and parent.nfp_large_cuda)
     print("kernels: nfp_strip (K3) against nfp_reference on the card "
           "(fp32 rtol=atol=1e-5; bf16 within one bf16 ulp)")
-    rows["nfp_strip"] = check_kernel(nfp_strip_cuda, k3_cases(), K3_MAIN,
-                                     nfp_reference, num_neighbors, nfp_output_size,
-                                     note=k2_plan, parent=parent and parent.nfp_strip_cuda)
+    rows["nfp_strip"] = phase("kernels K3", check_kernel, nfp_strip_cuda, k3_cases(), K3_MAIN,
+                              nfp_reference, num_neighbors, nfp_output_size,
+                              note=k2_plan, parent=parent and parent.nfp_strip_cuda)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"serve: torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
-    rows.update(check_int8_kernels(int8_gemm, int8_gemm_reference, pack_weight,
-                                   int8_conv2d, int8_conv2d_reference, pack_conv_weight))
+    rows.update(phase("kernels K4 and K5", check_int8_kernels, int8_gemm, int8_gemm_reference,
+                      pack_weight, int8_conv2d, int8_conv2d_reference, pack_conv_weight))
     launches = Launches(nfp_small=nfp_small_cuda, nfp_large=nfp_large_cuda,
                         nfp_strip=nfp_strip_cuda, int8_gemm=int8_gemm, int8_conv=int8_conv2d)
-    per_path = [serve_resnet18(Predictor, launches),
-                serve_mobilenetv3(Predictor, launches, gap2d, nfp)]
-    other_mobilenetv3_variants(Predictor, launches)
-    per_path.append(serve_resnet18_int8(Predictor, launches))
-    per_path.append(kernel_entry(launches, bench_nfp_kernel, nfp_kernel, nfp_reference))
+    per_path = [phase("serve resnet18", serve_texture_nfp, Predictor, launches),
+                phase("serve mobilenetv3", serve_mobilenetv3, Predictor, launches, gap2d, nfp)]
+    phase("other mobilenetv3 variants", other_mobilenetv3_variants, Predictor, launches)
+    per_path.append(phase("serve resnet50", serve_texture_nfp, Predictor, launches,
+                          "resnet50", seed=20))
+    per_path.append(phase("serve vittiny", serve_texture_nfp, Predictor, launches,
+                          "vittiny", seed=22))
+    per_path.append(phase("nfp_at_layer", nfp_at_layer, Predictor, launches))
+    per_path.append(phase("serve resnet18 int8", serve_resnet18_int8, Predictor, launches))
+    per_path.append(phase("kernel entry", kernel_entry, launches, bench_nfp_kernel, nfp_kernel,
+                          nfp_reference))
     none = dict(nfp_small=0, nfp_large=0, nfp_strip=0, int8_gemm=0, int8_conv=0)
-    per_path.append(train_parity(launches, engine, get_model, "resnet18", "texture_nfp",
-                                 dict(none, nfp_small=1)))
-    per_path.append(train_parity(launches, engine, get_model, "mobilenetv3", "multi_stage_nfp",
-                                 dict(none, nfp_small=2, nfp_large=3)))
-    train_rate(engine, get_model, nfp_reference, device_profile)
-    per_path.append(train_cli(launches, cli, Predictor))
+    for model_type, variant, want in (
+            ("resnet18", "texture_nfp", dict(none, nfp_small=1)),
+            ("mobilenetv3", "multi_stage_nfp", dict(none, nfp_small=2, nfp_large=3)),
+            ("resnet50", "texture_nfp", dict(none, nfp_small=1)),
+            ("vittiny", "texture_nfp", dict(none, nfp_small=1))):
+        per_path.append(phase(f"train parity {model_type}", train_parity, launches, engine,
+                              get_model, model_type, variant, want))
+    for model_type in ("resnet18", "resnet50", "vittiny"):
+        phase(f"train rate {model_type}", train_rate, engine, get_model, nfp_reference,
+              device_profile, model_type)
+    per_path.append(phase("train cli", train_cli, launches, cli, Predictor))
     counts = {k: sum(p[k] for p in per_path) for k in rows}
 
     sources = dict(nfp_small=("neighbour_feature_pooling_tpu_torch/csrc/nfp_small.cu",

@@ -15,8 +15,9 @@ Flags of parts not ported yet exit with a message naming their
 ``ROADMAP.md`` item: ``--seed_parallel``, ``--num_devices`` above 1,
 ``--model_parallel``, ``--pipeline``, ``--zero``, ``--export_dir``,
 ``--import_ckpt``, ``--pretrained``, ``--device_augment``, ``--device_data``,
-``--device_eval``, ``--bf16``, ``--remat``, ``--profile_steps`` and a model
-type other than ResNet18 or MobileNetV3.
+``--device_eval``, ``--bf16``, ``--remat``, ``--profile_steps`` and a
+``--model_type`` / ``--model_variant`` pair that ``get_model`` does not
+build yet.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from .data import DATASET_NUM_CLASSES, get_datamodule
-from .models import MODEL_VARIANTS, canonical_model_type, get_model
+from .models import MODEL_VARIANTS, canonical_model_type, check_ported, get_model
 from .ops.measures import MEASURE_NAMES
 from .train import Trainer, TrainerConfig
 from .train.checkpoint import checkpoint_exists
@@ -51,7 +52,6 @@ _PARALLEL = "ROADMAP.md Queue 1 item 8 (parallel and auxiliary code)"
 _SERVING = "ROADMAP.md Queue 1 item 5 (serving extras)"
 _DEVICE_DATA = "ROADMAP.md Queue 1 item 7 (device-side data)"
 _TRAIN_REST = "ROADMAP.md Queue 1 item 2 (training remainder)"
-_BACKBONES = "ROADMAP.md Queue 1 item 3 (the ResNet50 and ViT-Tiny backbones)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -168,6 +168,7 @@ def _model_kwargs(config: Dict) -> Dict:
         measure=config.get("similarity", "cosine"),
         nfp_radius=config.get("nfp_radius", 1),
         nfp_padding=config.get("nfp_padding", 0),
+        nfp_layer_idx=config.get("nfp_layer_idx", 3),
         nfp_insert_idx=config.get("nfp_insert_idx", 1),
         nfp_intermediate_layer_idx=config.get("nfp_intermediate_layer_idx", 1),
         nfp_mid_layer_idx=config.get("nfp_mid_layer_idx", 1),
@@ -192,12 +193,14 @@ def _check_ported(args) -> None:
         ("--bf16", args.bf16, _TRAIN_REST),
         ("--remat", args.remat, _TRAIN_REST),
         ("--profile_steps", args.profile_steps > 0, _TRAIN_REST),
-        (f"--model_type {args.model_type}", args.model_type not in ("resnet18", "mobilenetv3"),
-         _BACKBONES),
     ]
     for flag, used, item in unported:
         if used:
             raise SystemExit(f"{flag} is not ported yet: {item}")
+    try:
+        check_ported(args.model_type, args.model_variant)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
 
 
 def run_experiment(seed: int, config: Dict) -> float:
@@ -297,6 +300,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         "model_variant": args.model_variant,
         "nfp_radius": args.nfp_radius,
         "nfp_padding": args.nfp_padding,
+        "nfp_layer_idx": args.nfp_layer_idx,
         "nfp_insert_idx": args.nfp_insert_idx,
         "nfp_intermediate_layer_idx": args.nfp_intermediate_layer_idx,
         "nfp_mid_layer_idx": args.nfp_mid_layer_idx,

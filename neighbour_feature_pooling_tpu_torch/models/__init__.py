@@ -7,6 +7,7 @@ from .zoo import (  # noqa: F401
     NUM_FTRS,
     TextureModel,
     canonical_model_type,
+    check_ported,
     get_model,
     init_params,
 )

@@ -3,8 +3,9 @@ models/heads.py``).
 
 Every head maps an NHWC feature map ``(B, H, W, C)`` to a pooled vector
 ``(B, F)``, as in the JAX package; the classification ``fc`` lives in the
-model (``zoo.py``). Ported so far: ``gap2d``, ``NFPPoolingHead`` and, for
-``nfp_insert``, ``NFPProject`` (which maps a map to a map).
+model (``zoo.py``). Ported so far: ``gap2d``, ``NFPPoolingHead``,
+``NFPConvOnlyHead`` (``nfp_at_layer``) and, for ``nfp_insert``,
+``NFPProject`` (which maps a map to a map).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from torch import nn
 from ..ops import nfp, num_neighbors
 from .batchnorm import BatchNorm2d
 
-__all__ = ["gap2d", "NFPPoolingHead", "NFPProject"]
+__all__ = ["gap2d", "NFPPoolingHead", "NFPConvOnlyHead", "NFPProject"]
 
 
 def gap2d(x: torch.Tensor) -> torch.Tensor:
@@ -76,3 +77,19 @@ class NFPProject(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.nfp_proj(nfp(x, self.radius, self.measure, padding=self.padding))
+
+
+class NFPConvOnlyHead(nn.Module):
+    """``nfp_at_layer``: the NFP map (not pooled) → 1×1 conv + BN + ReLU to
+    ``bottleneck_dim`` channels → GAP. The zoo passes its ``nfp_padding``
+    (default 0), not the JAX head's default of ``radius``."""
+
+    def __init__(self, bottleneck_dim: int, radius: int, measure: str, padding: int):
+        super().__init__()
+        self.radius = radius
+        self.measure = measure
+        self.padding = padding
+        self.compress = _ConvBNReLU(num_neighbors(radius), bottleneck_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gap2d(self.compress(nfp(x, self.radius, self.measure, padding=self.padding)))

@@ -1,10 +1,12 @@
 """Model zoo: backbone × texture-head composition (counterpart of
 ``neighbour_feature_pooling_tpu/models/zoo.py``).
 
-Ported so far: ``resnet18`` × {``gap_only``, ``texture_nfp``} and
-``mobilenetv3`` × {``gap_only``, ``texture_nfp``,
+Ported so far: ``resnet18`` × {``gap_only``, ``texture_nfp``,
+``nfp_at_layer``}, ``resnet50`` and ``vittiny`` × {``gap_only``,
+``texture_nfp``} and ``mobilenetv3`` × {``gap_only``, ``texture_nfp``,
 ``texture_nfp_intermediate``, ``mid_nfp``, ``multi_stage_nfp``,
-``nfp_insert``}:
+``nfp_insert``}; ``vittiny``'s tokens become a map (``tokens_to_map``)
+before the head:
 
 ========================  ==================================================
 gap_only                  backbone → GAP → fc
@@ -16,13 +18,16 @@ multi_stage_nfp           NFP on all 5 taps → concat(B,40) → Linear(1280);
                           ⊙ GAP(conv_head(last)) → fc
 nfp_insert                blocks[0..i] → NFP map → 1×1 conv/BN/ReLU →
                           blocks[i+1..] → conv_head → GAP → fc
+nfp_at_layer              resnet18 layer{i+1} map → NFP map (padding
+                          ``nfp_padding``) → 1×1 conv/BN/ReLU → GAP → fc
 ========================  ==================================================
 
 Every other (type, variant) of the JAX registry raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item. Submodule names
 give the reference/timm ``state_dict`` keys (``backbone.*``,
 ``pool.nfp_proj.*``, ``nfp_proj.*``, ``nfp_mid_proj.*``,
-``nfp_insert.nfp_proj.{conv,bn}.*``, ``fc.*``).
+``nfp_insert.nfp_proj.{conv,bn}.*``, ``nfp_at_layer.compress.{conv,bn}.*``,
+``fc.*``).
 """
 
 from __future__ import annotations
@@ -35,11 +40,12 @@ from torch import nn
 
 from ..ops import nfp
 from .backbones.mobilenetv3 import BLOCK_OUT_CHANNELS, MobileNetV3Large
-from .backbones.resnet import resnet18
-from .heads import NFPPoolingHead, NFPProject, gap2d
+from .backbones.resnet import resnet18, resnet50
+from .backbones.vit import ViT, tokens_to_map, vit_tiny_patch16_224
+from .heads import NFPConvOnlyHead, NFPPoolingHead, NFPProject, gap2d
 
 __all__ = ["TextureModel", "get_model", "init_params", "MODEL_VARIANTS",
-           "NUM_FTRS", "canonical_model_type"]
+           "NUM_FTRS", "canonical_model_type", "check_ported"]
 
 #: feature dims per backbone
 NUM_FTRS = {
@@ -76,7 +82,9 @@ MODEL_VARIANTS: Dict[str, Tuple[str, ...]] = {
 }
 
 _PORTED = {
-    "resnet18": ("gap_only", "texture_nfp"),
+    "resnet18": ("gap_only", "texture_nfp", "nfp_at_layer"),
+    "resnet50": ("gap_only", "texture_nfp"),
+    "vittiny": ("gap_only", "texture_nfp"),
     "mobilenetv3": ("gap_only", "texture_nfp", "texture_nfp_intermediate",
                     "mid_nfp", "multi_stage_nfp", "nfp_insert"),
 }
@@ -89,19 +97,19 @@ def canonical_model_type(model_type: str) -> str:
     return _MODEL_TYPE_ALIASES.get(mt, mt)
 
 
-def _check_ported(mt: str, variant: str) -> None:
+def check_ported(mt: str, variant: str) -> None:
+    """Raise unless ``get_model`` builds (``mt``, ``variant``): ValueError for
+    a pair the JAX registry lacks, NotImplementedError naming the ROADMAP
+    item for one not ported yet."""
     if mt not in MODEL_VARIANTS:
         raise ValueError(f"Unknown model_type: {mt}")
     if variant not in MODEL_VARIANTS[mt]:
         raise ValueError(f"Unknown model_variant {variant!r} for {mt}; "
                          f"allowed: {MODEL_VARIANTS[mt]}")
-    if variant in _PORTED.get(mt, ()):
+    if variant in _PORTED[mt]:
         return
-    if mt in _PORTED:
-        item = "Queue 1 item 4 (other texture heads and the legacy grid)"
-    else:
-        item = "Queue 1 item 3 (the ResNet50 and ViT-Tiny backbones)"
-    raise NotImplementedError(f"{mt}/{variant} is not ported yet: ROADMAP.md {item}")
+    raise NotImplementedError(f"{mt}/{variant} is not ported yet: ROADMAP.md Queue 1 "
+                              f"item 4 (other texture heads and the legacy grid)")
 
 
 class TextureModel(nn.Module):
@@ -112,21 +120,26 @@ class TextureModel(nn.Module):
     def __init__(self, model_type: str, model_variant: str, num_classes: int,
                  num_input_channels: int = 3, measure: str = "cosine",
                  nfp_radius: int = 1, nfp_padding: int = 0,
-                 nfp_insert_idx: int = 1,
+                 nfp_layer_idx: int = 3, nfp_insert_idx: int = 1,
                  nfp_intermediate_layer_idx: Optional[int] = 1,
                  nfp_mid_layer_idx: int = 1, stem_s2d: bool = False):
         super().__init__()
         mt = canonical_model_type(model_type)
         variant = model_variant.lower()
-        _check_ported(mt, variant)
+        check_ported(mt, variant)
         self.model_type = mt
         self.model_variant = variant
+        self.nfp_layer_idx = nfp_layer_idx
         self.nfp_insert_idx = nfp_insert_idx
         self.nfp_intermediate_layer_idx = nfp_intermediate_layer_idx
         self.nfp_mid_layer_idx = nfp_mid_layer_idx
         feat_dim = NUM_FTRS[mt]
         if mt == "resnet18":
             self.backbone = resnet18(in_chans=num_input_channels, stem_s2d=stem_s2d)
+        elif mt == "resnet50":
+            self.backbone = resnet50(in_chans=num_input_channels, stem_s2d=stem_s2d)
+        elif mt == "vittiny":
+            self.backbone = vit_tiny_patch16_224(in_chans=num_input_channels)
         elif variant == "texture_nfp_intermediate" and nfp_intermediate_layer_idx is not None:
             # the flax module stops at the tap, so later stages have no weights
             self.backbone = MobileNetV3Large(num_input_channels,
@@ -146,6 +159,9 @@ class TextureModel(nn.Module):
         elif variant == "nfp_insert":
             self.nfp_insert = NFPProject(BLOCK_OUT_CHANNELS[nfp_insert_idx],
                                          nfp_radius, measure, padding=nfp_padding)
+        elif variant == "nfp_at_layer":  # the tap's width: 64·2^i
+            feat_dim = 64 * 2 ** nfp_layer_idx
+            self.nfp_at_layer = NFPConvOnlyHead(feat_dim, nfp_radius, measure, nfp_padding)
         self.fc = nn.Linear(feat_dim, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -170,7 +186,12 @@ class TextureModel(nn.Module):
             fmap = self.backbone(self.nfp_insert(fmap), mode="head",
                                  start_at_block=self.nfp_insert_idx + 1)
             return self.fc(gap2d(fmap))
+        if v == "nfp_at_layer":
+            tap = self.backbone(x, return_stages=True)[self.nfp_layer_idx]
+            return self.fc(self.nfp_at_layer(tap))
         fmap = self.backbone(x)
+        if self.model_type == "vittiny":
+            fmap = tokens_to_map(fmap)
         if v == "gap_only":
             return self.fc(gap2d(fmap))
         return self.fc(self.pool(fmap))
@@ -186,8 +207,11 @@ def get_model(model_type: str, model_variant: str, num_classes: int,
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialization on the CPU at the JAX package's scales: conv
     and linear weights normal with std 1/sqrt(fan_in) (flax's LeCun-normal
-    draws the truncated form), biases 0, BatchNorm scale 1, shift 0,
-    running mean 0 and variance 1. The draws differ from JAX's."""
+    draws the truncated form; each third of ViT's fused qkv has fan-in D
+    as each flax projection has), biases 0, BatchNorm and LayerNorm scale
+    1 and shift 0, BatchNorm running mean 0 and variance 1, ViT's
+    ``cls_token`` 0 and ``pos_embed`` normal with std 0.02. The draws
+    differ from JAX's."""
     for module in model.modules():
         if isinstance(module, (nn.Conv2d, nn.Linear)):
             w = module.weight
@@ -195,6 +219,10 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
             w.copy_(torch.randn(w.shape, generator=generator) / math.sqrt(fan_in))
             if module.bias is not None:
                 module.bias.zero_()
-        elif isinstance(module, nn.BatchNorm2d):
+        elif isinstance(module, (nn.BatchNorm2d, nn.LayerNorm)):
             module.reset_parameters()
+        elif isinstance(module, ViT):
+            module.cls_token.zero_()
+            module.pos_embed.copy_(0.02 * torch.randn(module.pos_embed.shape,
+                                                      generator=generator))
     return model

@@ -38,6 +38,12 @@ __all__ = [
 ]
 
 
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """``|x|`` with JAX's subgradient at 0: ``jax.grad(jnp.abs)(0.0)`` is
+    1, where ``torch.abs``'s is 0. Forward values are ``torch.abs``'s."""
+    return torch.where(x >= 0, x, -x)
+
+
 @dataclasses.dataclass(frozen=True)
 class MeasureConfig:
     """Static hyper-parameters threaded through measure evaluation:
@@ -62,10 +68,10 @@ def _norm(c, n, dim, cfg):
     d = c - n
     p = cfg.p
     if p == 1:
-        return torch.sum(torch.abs(d), dim=dim)
+        return torch.sum(_abs(d), dim=dim)
     if p == 2:
         return safe_sqrt(torch.sum(d * d, dim=dim))
-    return torch.sum(torch.abs(d) ** p, dim=dim) ** (1.0 / p)
+    return torch.sum(_abs(d) ** p, dim=dim) ** (1.0 / p)
 
 
 def _cosine(c, n, dim, cfg):
@@ -94,30 +100,30 @@ def _geman(c, n, dim, cfg):
 
 def _emd(c, n, dim, cfg):
     """Simplified Earth Mover's Distance = L1."""
-    return torch.sum(torch.abs(c - n), dim=dim)
+    return torch.sum(_abs(c - n), dim=dim)
 
 
 def _canberra(c, n, dim, cfg):
-    return torch.sum(torch.abs(c - n) / (torch.abs(c) + torch.abs(n) + cfg.eps),
+    return torch.sum(_abs(c - n) / (_abs(c) + _abs(n) + cfg.eps),
                      dim=dim)
 
 
 def _hellinger(c, n, dim, cfg):
     """Hellinger distance on |x|+eps surrogates."""
-    a = torch.sqrt(torch.abs(c) + cfg.eps)
-    b = torch.sqrt(torch.abs(n) + cfg.eps)
+    a = torch.sqrt(_abs(c) + cfg.eps)
+    b = torch.sqrt(_abs(n) + cfg.eps)
     return safe_sqrt(0.5 * torch.sum((a - b) ** 2, dim=dim))
 
 
 def _chisquared1(c, n, dim, cfg):
     """Chi-squared distance, symmetric denominator."""
-    return torch.sum((c - n) ** 2 / (torch.abs(c) + torch.abs(n) + cfg.eps),
+    return torch.sum((c - n) ** 2 / (_abs(c) + _abs(n) + cfg.eps),
                      dim=dim)
 
 
 def _chisquared2(c, n, dim, cfg):
     """Chi-squared distance, center-only denominator."""
-    return torch.sum((c - n) ** 2 / (torch.abs(c) + cfg.eps), dim=dim)
+    return torch.sum((c - n) ** 2 / (_abs(c) + cfg.eps), dim=dim)
 
 
 def _gfc(c, n, dim, cfg):
@@ -140,22 +146,22 @@ def _pearson(c, n, dim, cfg):
 
 def _jeffrey(c, n, dim, cfg):
     """Jeffrey (symmetric KL) divergence on |x|+eps surrogates."""
-    a = torch.abs(c) + cfg.eps
-    b = torch.abs(n) + cfg.eps
+    a = _abs(c) + cfg.eps
+    b = _abs(n) + cfg.eps
     log_ab = torch.log(a / b)
     return torch.sum(a * log_ab - b * log_ab, dim=dim)
 
 
 def _squaredchord(c, n, dim, cfg):
-    a = torch.sqrt(torch.abs(c) + cfg.eps)
-    b = torch.sqrt(torch.abs(n) + cfg.eps)
+    a = torch.sqrt(_abs(c) + cfg.eps)
+    b = torch.sqrt(_abs(n) + cfg.eps)
     return torch.sum((a - b) ** 2, dim=dim)
 
 
 def _smith(c, n, dim, cfg):
     """Smith dissimilarity on absolute values."""
-    ca = torch.abs(c)
-    na = torch.abs(n)
+    ca = _abs(c)
+    na = _abs(n)
     min_sum = torch.sum(torch.minimum(ca, na), dim=dim)
     denom = torch.minimum(torch.sum(ca, dim=dim), torch.sum(na, dim=dim)) + cfg.eps
     return 1.0 - min_sum / denom
@@ -278,7 +284,7 @@ class SeparableMeasure:
 
 
 def _sep_norm_terms(c, n, cfg):
-    d = torch.abs(c - n)
+    d = _abs(c - n)
     if cfg.p == 1:
         return (d,)
     return (d * d,) if cfg.p == 2 else (d ** cfg.p,)
@@ -303,12 +309,12 @@ def _sep_identity(s, nc, cfg):
 
 
 def _sep_sqrt_abs(c, n, cfg):
-    return (torch.sqrt(torch.abs(c) + cfg.eps) - torch.sqrt(torch.abs(n) + cfg.eps)) ** 2
+    return (torch.sqrt(_abs(c) + cfg.eps) - torch.sqrt(_abs(n) + cfg.eps)) ** 2
 
 
 def _sep_jeffrey_terms(c, n, cfg):
-    a = torch.abs(c) + cfg.eps
-    b = torch.abs(n) + cfg.eps
+    a = _abs(c) + cfg.eps
+    b = _abs(n) + cfg.eps
     return ((a - b) * torch.log(a / b),)
 
 
@@ -325,20 +331,20 @@ SEPARABLE: Dict[str, SeparableMeasure] = {
     "geman": SeparableMeasure(
         1, lambda c, n, cfg: (((c - n) ** 2) / ((c - n) ** 2 + cfg.eps),),
         lambda s, nc, cfg: s[0] / nc),
-    "emd": SeparableMeasure(1, lambda c, n, cfg: (torch.abs(c - n),), _sep_identity),
+    "emd": SeparableMeasure(1, lambda c, n, cfg: (_abs(c - n),), _sep_identity),
     "canberra": SeparableMeasure(
-        1, lambda c, n, cfg: (torch.abs(c - n)
-                              / (torch.abs(c) + torch.abs(n) + cfg.eps),),
+        1, lambda c, n, cfg: (_abs(c - n)
+                              / (_abs(c) + _abs(n) + cfg.eps),),
         _sep_identity),
     "hellinger": SeparableMeasure(
         1, lambda c, n, cfg: (_sep_sqrt_abs(c, n, cfg),),
         lambda s, nc, cfg: safe_sqrt(0.5 * s[0])),
     "chisquared1": SeparableMeasure(
         1, lambda c, n, cfg: ((c - n) ** 2
-                              / (torch.abs(c) + torch.abs(n) + cfg.eps),),
+                              / (_abs(c) + _abs(n) + cfg.eps),),
         _sep_identity),
     "chisquared2": SeparableMeasure(
-        1, lambda c, n, cfg: ((c - n) ** 2 / (torch.abs(c) + cfg.eps),),
+        1, lambda c, n, cfg: ((c - n) ** 2 / (_abs(c) + cfg.eps),),
         _sep_identity),
     "gfc": SeparableMeasure(
         3, _sep_moments,
@@ -347,8 +353,8 @@ SEPARABLE: Dict[str, SeparableMeasure] = {
     "squaredchord": SeparableMeasure(
         1, lambda c, n, cfg: (_sep_sqrt_abs(c, n, cfg),), _sep_identity),
     "smith": SeparableMeasure(
-        3, lambda c, n, cfg: (torch.minimum(torch.abs(c), torch.abs(n)),
-                              torch.abs(c), torch.abs(n)),
+        3, lambda c, n, cfg: (torch.minimum(_abs(c), _abs(n)),
+                              _abs(c), _abs(n)),
         lambda s, nc, cfg: 1.0 - s[0] / (torch.minimum(s[1], s[2]) + cfg.eps)),
     "scs": SeparableMeasure(
         3, _sep_moments,

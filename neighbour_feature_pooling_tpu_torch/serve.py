@@ -7,11 +7,14 @@ on the device under ``torch.inference_mode()``, softmax probabilities and
 argmax labels out. It runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; asking for CUDA where there is none raises. It serves
 whatever ``models.get_model`` builds: ResNet18 × {``gap_only``,
+``texture_nfp``, ``nfp_at_layer``}, ResNet50 and ViT-Tiny × {``gap_only``,
 ``texture_nfp``} and MobileNetV3-Large × {``gap_only``, ``texture_nfp``,
 ``texture_nfp_intermediate``, ``mid_nfp``, ``multi_stage_nfp``,
 ``nfp_insert``}, whose options reach the model through ``model_kwargs``.
 
-``quantize="int8"`` serves the int8 tier of ``quant.py``: weights
+``quantize="int8"`` serves the int8 tier of ``quant.py`` for ResNet18
+(``gap_only``, ``texture_nfp``) and MobileNetV3 (ResNet50, ViT-Tiny and
+``nfp_at_layer`` raise: ROADMAP.md Queue 1 item 6): weights
 quantized once at build, BN folded into the conv epilogues (``fold_bn``),
 every eligible conv and linear through the int8 kernels K4 and K5, and
 ``calibrate`` for static activation scales and s8 chains. The float
@@ -30,12 +33,15 @@ import numpy as np
 import torch
 
 from .data.transforms import TransformConfig, eval_transform
-from .models import get_model, init_params
+from .models import canonical_model_type, get_model, init_params
 from .quant import (QuantConfig, build_bn_folding, build_int8_chains,
                     calibrate_act_scales, prequantize_weights, quantize_model)
 from .train.checkpoint import checkpoint_exists, restore_for_inference
 
 __all__ = ["Predictor"]
+
+#: backbones whose int8 tier is not held against the JAX package's yet
+_INT8_UNPORTED = ("resnet50", "vittiny")
 
 
 def _resolve_device(device: str) -> torch.device:
@@ -84,6 +90,12 @@ class Predictor:
         if self.quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {self.quantize!r}; "
                              "expected None or 'int8'")
+        if self.quantize == "int8" and (
+                canonical_model_type(self.model_type) in _INT8_UNPORTED
+                or self.model_variant.lower() == "nfp_at_layer"):
+            raise NotImplementedError(
+                f"quantize='int8' on {self.model_type}/{self.model_variant} is not ported "
+                f"yet: ROADMAP.md Queue 1 item 6 (int8 for ResNet50, ViT and nfp_at_layer)")
         self.transform = self.transform or TransformConfig(
             resize_size=self.resize_size, input_size=self.input_size)
         model = self._new_model()

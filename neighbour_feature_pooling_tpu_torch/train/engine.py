@@ -137,8 +137,8 @@ def freeze_mask(model: nn.Module, substrings: Tuple[str, ...] = FREEZE_SUBSTRING
     for name, _ in model.named_parameters():
         module, leaf = name.rsplit(".", 1)
         if leaf == "weight":
-            is_bn = isinstance(model.get_submodule(module), nn.BatchNorm2d)
-            leaf = "scale" if is_bn else "kernel"
+            is_norm = isinstance(model.get_submodule(module), (nn.BatchNorm2d, nn.LayerNorm))
+            leaf = "scale" if is_norm else "kernel"
         path = flax_module_path(module) + (leaf,)
         mask[name] = 0.0 if any(s in part for part in path for s in substrings) else 1.0
     return mask

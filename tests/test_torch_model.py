@@ -1,4 +1,5 @@
-"""The PyTorch port's ResNet18 models against the JAX package's, on the CPU.
+"""The PyTorch port's ResNet18 models (``gap_only``, ``texture_nfp`` and
+``nfp_at_layer``) against the JAX package's, on the CPU.
 
 The JAX ``TextureModel`` is initialised from ``PRNGKey(0)``; every BatchNorm
 scale, shift, running mean and variance and every bias is then replaced by
@@ -47,11 +48,11 @@ def _randomise(variables, seed):
 _JAX_CASES = {}
 
 
-def _jax_case(variant, size, stem_s2d=False):
+def _jax_case(variant, size, stem_s2d=False, **kwargs):
     """(variables, images, logits) of the JAX model, once per configuration."""
-    key = (variant, size, stem_s2d)
+    key = (variant, size, stem_s2d) + tuple(sorted(kwargs.items()))
     if key not in _JAX_CASES:
-        model = jax_get_model("resnet18", variant, NUM_CLASSES, stem_s2d=stem_s2d)
+        model = jax_get_model("resnet18", variant, NUM_CLASSES, stem_s2d=stem_s2d, **kwargs)
         x = np.random.default_rng(size).standard_normal((2, size, size, 3)).astype(np.float32)
         init = model.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(x[:1]), train=False)
         variables = _randomise(init, seed=size)
@@ -60,8 +61,8 @@ def _jax_case(variant, size, stem_s2d=False):
     return _JAX_CASES[key]
 
 
-def _port_model(variant, variables, stem_s2d=False):
-    model = get_model("resnet18", variant, NUM_CLASSES, stem_s2d=stem_s2d)
+def _port_model(variant, variables, stem_s2d=False, **kwargs):
+    model = get_model("resnet18", variant, NUM_CLASSES, stem_s2d=stem_s2d, **kwargs)
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
     return model.eval()
 
@@ -79,6 +80,20 @@ CASES = [("gap_only", 64, False), ("texture_nfp", 64, False),
 def test_logits_match_jax(variant, size, stem_s2d):
     _, variables, x, want = _jax_case(variant, size, stem_s2d)
     model = _port_model(variant, variables, stem_s2d)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, NUM_CLASSES)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+# nfp_at_layer taps layer{idx+1} with the zoo's padding 0: at 128 px,
+# layer4's 4x4 map gives a 2x2 NFP map (at 64 px its 2x2 map would give
+# none); at 64 px, layer3's 4x4 gives 2x2 and layer1's 16x16 gives 14x14
+@pytest.mark.parametrize("idx,size", [(3, 128), (2, 64), (0, 64)])
+def test_nfp_at_layer_logits_match_jax(idx, size):
+    _, variables, x, want = _jax_case("nfp_at_layer", size, nfp_layer_idx=idx)
+    model = _port_model("nfp_at_layer", variables, nfp_layer_idx=idx)
+    assert model.nfp_at_layer.compress.conv.weight.shape == (64 * 2 ** idx, 8, 1, 1)
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape == (2, NUM_CLASSES)
@@ -116,8 +131,8 @@ def test_state_dict_round_trips_through_the_jax_importer():
 def test_unported_variants_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_model("resnet18", "texture_fractal", NUM_CLASSES)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-        get_model("resnet50", "texture_nfp", NUM_CLASSES)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+        get_model("resnet50", "texture_fractal", NUM_CLASSES)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
         get_model("mobilenetv3", "gap_nfp_conv_mlp_concat", NUM_CLASSES)
     with pytest.raises(ValueError, match="Unknown model_variant"):

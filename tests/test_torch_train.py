@@ -119,18 +119,13 @@ def test_function_backward_recomputes_the_plain_version():
     assert len(calls) == 2
 
 
-#: measures whose value has |·| at a zero argument on the degenerate maps:
-#: there torch's subgradient of abs is 0 and JAX's is 1 (ROADMAP.md Queue 3)
-ABS_AT_ZERO = ("norm", "emd", "canberra", "smith")
-
-
 @pytest.mark.parametrize("case", ["constant", "dead_channels", "zeros"])
 @pytest.mark.parametrize("measure", MEASURE_NAMES)
 def test_nfp_grads_finite_at_degenerate_inputs(measure, case):
     """Every measure's backward is finite where centre == neighbour, where
     channels are dead and on the all-zero map (tests/test_grad_robustness.py
-    on the JAX side); the loss equals JAX's, and so does the gradient except
-    where the two frameworks pick different subgradients of |x| at 0."""
+    on the JAX side); the loss and the gradient equal JAX's, including the
+    subgradient of |x| at 0."""
     rng = np.random.default_rng(3)
     if case == "constant":
         x = np.ones((1, 5, 5, 8), np.float32) * 0.37
@@ -148,8 +143,7 @@ def test_nfp_grads_finite_at_degenerate_inputs(measure, case):
     assert torch.isfinite(loss), f"{measure}/{case}: forward not finite"
     assert torch.isfinite(xt.grad).all(), f"{measure}/{case}: NaN/Inf grad"
     np.testing.assert_allclose(float(loss.detach()), float(val), **TOL)
-    if measure not in ABS_AT_ZERO:
-        np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), **TOL)
 
 
 # ------------------------------------------------------- loss and metrics

@@ -208,7 +208,8 @@ def test_parser_flags_are_the_jax_flags_plus_device():
 
 @pytest.mark.parametrize("flags", [["--seed_parallel"], ["--zero", "fsdp"], ["--bf16"],
                                    ["--device_data"], ["--export_dir", "x"],
-                                   ["--model_type", "resnet50"]])
+                                   ["--model_type", "resnet50", "--model_variant",
+                                    "texture_fractal"]])
 def test_unported_flags_exit_naming_the_roadmap(flags):
     with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item"):
         cli.main(["--dataset", "synthetic", "--device", "cpu"] + flags)

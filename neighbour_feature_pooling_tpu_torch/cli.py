@@ -15,9 +15,9 @@ Flags of parts not ported yet exit with a message naming their
 ``ROADMAP.md`` item: ``--seed_parallel``, ``--num_devices`` above 1,
 ``--model_parallel``, ``--pipeline``, ``--zero``, ``--export_dir``,
 ``--import_ckpt``, ``--pretrained``, ``--device_augment``, ``--device_data``,
-``--device_eval``, ``--bf16``, ``--remat``, ``--profile_steps`` and a
-``--model_type`` / ``--model_variant`` pair that ``get_model`` does not
-build yet.
+``--device_eval``, ``--bf16``, ``--remat`` and ``--profile_steps``. Every
+``--model_type`` / ``--model_variant`` pair of the JAX registry trains; a
+pair outside it exits with the registry's message.
 """
 
 from __future__ import annotations
@@ -168,6 +168,7 @@ def _model_kwargs(config: Dict) -> Dict:
         measure=config.get("similarity", "cosine"),
         nfp_radius=config.get("nfp_radius", 1),
         nfp_padding=config.get("nfp_padding", 0),
+        nfp_stride=config.get("nfp_stride", 1),
         nfp_layer_idx=config.get("nfp_layer_idx", 3),
         nfp_insert_idx=config.get("nfp_insert_idx", 1),
         nfp_intermediate_layer_idx=config.get("nfp_intermediate_layer_idx", 1),
@@ -177,7 +178,8 @@ def _model_kwargs(config: Dict) -> Dict:
 
 
 def _check_ported(args) -> None:
-    """Exit, naming the ROADMAP item, on a flag of a part not ported yet."""
+    """Exit, naming the ROADMAP item, on a flag of a part not ported yet,
+    and on a (type, variant) pair outside the registry."""
     unported = [
         ("--seed_parallel", args.seed_parallel, _PARALLEL),
         ("--num_devices > 1", (args.num_devices or 1) > 1, _PARALLEL),
@@ -199,7 +201,7 @@ def _check_ported(args) -> None:
             raise SystemExit(f"{flag} is not ported yet: {item}")
     try:
         check_ported(args.model_type, args.model_variant)
-    except NotImplementedError as e:
+    except ValueError as e:  # a (type, variant) pair the registry lacks
         raise SystemExit(str(e)) from None
 
 
@@ -300,6 +302,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         "model_variant": args.model_variant,
         "nfp_radius": args.nfp_radius,
         "nfp_padding": args.nfp_padding,
+        "nfp_stride": args.nfp_stride,
         "nfp_layer_idx": args.nfp_layer_idx,
         "nfp_insert_idx": args.nfp_insert_idx,
         "nfp_intermediate_layer_idx": args.nfp_intermediate_layer_idx,

@@ -20,10 +20,16 @@ inverse of the JAX package's own import (``timm_port.port_resnet`` and
   ``attn`` the ``query``/``key``/``value`` projections (kernels ``(D, H,
   Dh)``, biases ``(H, Dh)``) → one ``qkv`` Linear ``(3D, D)``, queries
   first, and ``out`` (kernel ``(H, Dh, D)``) → ``proj``; the leaves
-  ``cls_token`` and ``pos_embed`` keep their names. Head names
+  ``cls_token`` and ``pos_embed`` keep their names;
+* the heads: the fractal head's ``pool/conv1`` and ``pool/bn`` →
+  ``pool.conv1.0`` and ``pool.conv1.2`` (the reference's ``Sequential(Conv2d,
+  Dropout2d, BatchNorm2d)``), DeepTEN's ``encoding/bn`` → the top-level
+  ``bn`` and its ``encoding/{codewords,scale}`` leaves keep their names
+  (the JAX importer's table, import_torch.py:18-29). Every other head name
   (``pool.nfp_proj``, ``nfp_proj``, ``nfp_mid_proj``,
-  ``nfp_insert.nfp_proj.{conv,bn}``, ``nfp_at_layer.compress.{conv,bn}``)
-  are the same on both sides.
+  ``nfp_insert.nfp_proj.{conv,bn}``, ``nfp_at_layer.compress.{conv,bn}``,
+  the legacy grid's ``head.*`` and ``nfp_head.*``) is the same on both
+  sides.
 """
 
 from __future__ import annotations
@@ -61,9 +67,16 @@ _ATTN = {"query": "qkv", "key": "qkv", "value": "qkv", "proj_qkv": "qkv",
 #: MobileNetV3 stage-0 block: the JAX InvertedResidual names → timm's
 #: DepthwiseSeparableConv names (one lookup each; never chained)
 _STAGE0 = {"conv_dw": "conv_dw", "bn2": "bn1", "conv_pwl": "conv_pw", "bn3": "bn2"}
+#: whole head module paths whose port names are the reference's keys
+_HEADS = {("pool", "conv1"): "pool.conv1.0", ("pool", "bn"): "pool.conv1.2",
+          ("encoding", "bn"): "bn"}
+#: DeepTEN's own parameters, whose leaf names stay
+_ENCODING = ("encoding",)
 
 
 def _module_key(path: Tuple[str, ...]) -> str:
+    if path in _HEADS:
+        return _HEADS[path]
     parts = []
     for i, p in enumerate(path):
         if i and re.fullmatch(r"blocks_0_\d+", path[i - 1]):
@@ -91,6 +104,7 @@ _UNRENAMES = {v: k for k, v in _RENAMES.items()}
 _UNSTAGE0 = {v: k for k, v in _STAGE0.items()}
 #: no one flax module holds the fused qkv: its path names the JAX int8 key
 _UNATTN = {"qkv": "proj_qkv", "proj": "out"}
+_UNHEADS = {v: k for k, v in _HEADS.items()}
 
 
 def flax_module_path(name: str) -> Tuple[str, ...]:
@@ -99,6 +113,8 @@ def flax_module_path(name: str) -> Tuple[str, ...]:
     ``("backbone", "layer2_0", "downsample_conv")``. ViT's fused
     ``attn.qkv`` maps to ``("attn", "proj_qkv")``, the JAX int8 key of
     the matmul it is."""
+    if name in _UNHEADS:
+        return _UNHEADS[name]
     parts, path, i = name.split("."), [], 0
     while i < len(parts):
         for n in (4, 2):  # the renamed keys span 4 ("blocks.6.0.conv") or 2 parts
@@ -162,6 +178,8 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> "OrderedDict[str, torc
             if len(group) < len(_QKV):
                 continue
             name, arr = _fused_qkv(group, path[-1])
+        elif path[:-1] == _ENCODING:
+            name, arr = path[-1], np.asarray(value)
         else:
             name, arr = _param(path[-1], np.asarray(value))
         module = _module_key(path[:-1])

@@ -6,15 +6,16 @@ eval transform, requests chunked and padded to a fixed batch size, a forward
 on the device under ``torch.inference_mode()``, softmax probabilities and
 argmax labels out. It runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; asking for CUDA where there is none raises. It serves
-whatever ``models.get_model`` builds: ResNet18 × {``gap_only``,
-``texture_nfp``, ``nfp_at_layer``}, ResNet50 and ViT-Tiny × {``gap_only``,
-``texture_nfp``} and MobileNetV3-Large × {``gap_only``, ``texture_nfp``,
-``texture_nfp_intermediate``, ``mid_nfp``, ``multi_stage_nfp``,
-``nfp_insert``}, whose options reach the model through ``model_kwargs``.
+whatever ``models.get_model`` builds, every (type, variant) pair of the
+JAX registry, whose options reach the model through ``model_kwargs``.
 
 ``quantize="int8"`` serves the int8 tier of ``quant.py`` for ResNet18
-(``gap_only``, ``texture_nfp``) and MobileNetV3 (ResNet50, ViT-Tiny and
-``nfp_at_layer`` raise: ROADMAP.md Queue 1 item 6): weights
+(``gap_only``, ``texture_nfp``) and MobileNetV3's ``gap_only``,
+``texture_nfp``, ``texture_nfp_intermediate``, ``mid_nfp``,
+``multi_stage_nfp`` and ``nfp_insert``; every other pair (ResNet50,
+ViT-Tiny, ``nfp_at_layer``, the other texture heads and the legacy grid)
+raises, naming ROADMAP.md Queue 1 item 6: no test holds its int8 logits
+against the JAX int8 tier yet. Weights
 quantized once at build, BN folded into the conv epilogues (``fold_bn``),
 every eligible conv and linear through the int8 kernels K4 and K5, and
 ``calibrate`` for static activation scales and s8 chains. The float
@@ -40,8 +41,12 @@ from .train.checkpoint import checkpoint_exists, restore_for_inference
 
 __all__ = ["Predictor"]
 
-#: backbones whose int8 tier is not held against the JAX package's yet
-_INT8_UNPORTED = ("resnet50", "vittiny")
+#: the (type, variants) whose int8 tier is held against the JAX package's
+_INT8_PORTED = {
+    "resnet18": ("gap_only", "texture_nfp"),
+    "mobilenetv3": ("gap_only", "texture_nfp", "texture_nfp_intermediate", "mid_nfp",
+                    "multi_stage_nfp", "nfp_insert"),
+}
 
 
 def _resolve_device(device: str) -> torch.device:
@@ -90,12 +95,12 @@ class Predictor:
         if self.quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {self.quantize!r}; "
                              "expected None or 'int8'")
-        if self.quantize == "int8" and (
-                canonical_model_type(self.model_type) in _INT8_UNPORTED
-                or self.model_variant.lower() == "nfp_at_layer"):
+        if self.quantize == "int8" and self.model_variant.lower() not in _INT8_PORTED.get(
+                canonical_model_type(self.model_type), ()):
             raise NotImplementedError(
                 f"quantize='int8' on {self.model_type}/{self.model_variant} is not ported "
-                f"yet: ROADMAP.md Queue 1 item 6 (int8 for ResNet50, ViT and nfp_at_layer)")
+                f"yet: ROADMAP.md Queue 1 item 6 (int8 for ResNet50, ViT, nfp_at_layer, "
+                f"the other texture heads and the legacy grid)")
         self.transform = self.transform or TransformConfig(
             resize_size=self.resize_size, input_size=self.input_size)
         model = self._new_model()

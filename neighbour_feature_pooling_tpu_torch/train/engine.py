@@ -12,6 +12,10 @@ The reference's ``Lightning_Wrapper`` recipe, as the JAX package runs it:
 * ``grad_accum = k``: optax ``MultiSteps``, the mean gradient of k train
   steps, one update every k steps, BatchNorm statistics updated on every
   step;
+* dropout: the masks of train step ``step`` come from a CPU
+  ``torch.Generator`` seeded from (``seed + 1``, ``step``), as the JAX
+  step draws from ``fold_in(PRNGKey(seed + 1), state.step)``: a resumed
+  run draws the masks it would have drawn, and the card the CPU's;
 * freeze schedule: while ``frozen``, the gradients of parameters whose name
   has a component containing ``nfp_head`` or ``se_gate`` are zero tensors.
   Adam still counts the step and decays those moments, as optax does (a
@@ -64,7 +68,9 @@ class TrainState:
 
     ``step`` counts train steps (the JAX ``state.step``), ``updates`` the
     optimizer updates (one per ``grad_accum`` steps); ``schedule`` maps an
-    update count to its learning rate (``cosine``), else None."""
+    update count to its learning rate (``cosine``), else None;
+    ``dropout_seed`` and ``step`` seed the dropout masks
+    (``dropout_generator``)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
@@ -72,6 +78,18 @@ class TrainState:
     updates: int = 0
     grad_accum: int = 1
     schedule: Optional[Callable[[int], float]] = None
+    dropout_seed: int = 0
+    generator: Optional[torch.Generator] = None
+
+    def dropout_generator(self) -> torch.Generator:
+        """The generator of this step's dropout masks, seeded from
+        (``dropout_seed``, ``step``): the JAX ``fold_in(dropout_rng,
+        state.step)``. It lives on the model's device, so the masks are
+        drawn where they are used (a card's masks are not the CPU's)."""
+        device = next(self.model.parameters()).device
+        if self.generator is None or self.generator.device != device:
+            self.generator = torch.Generator(device=device)
+        return self.generator.manual_seed((self.dropout_seed << 32) + self.step)
 
     @property
     def params(self) -> List[Tuple[str, nn.Parameter]]:
@@ -137,7 +155,8 @@ def freeze_mask(model: nn.Module, substrings: Tuple[str, ...] = FREEZE_SUBSTRING
     for name, _ in model.named_parameters():
         module, leaf = name.rsplit(".", 1)
         if leaf == "weight":
-            is_norm = isinstance(model.get_submodule(module), (nn.BatchNorm2d, nn.LayerNorm))
+            is_norm = isinstance(model.get_submodule(module),
+                                 (nn.modules.batchnorm._BatchNorm, nn.LayerNorm))
             leaf = "scale" if is_norm else "kernel"
         path = flax_module_path(module) + (leaf,)
         mask[name] = 0.0 if any(s in part for part in path for s in substrings) else 1.0
@@ -178,7 +197,7 @@ def create_train_state(model: nn.Module, seed: int, learning_rate: float,
     optimizer = torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
                                  eps=1e-8)
     return TrainState(model=model, optimizer=optimizer, grad_accum=max(1, int(grad_accum)),
-                      schedule=schedule)
+                      schedule=schedule, dropout_seed=seed + 1)
 
 
 def _load_checked(module: nn.Module, sd: Mapping[str, torch.Tensor], what: str) -> None:
@@ -198,13 +217,14 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor], num_classes
                freeze_substrings: Tuple[str, ...] = FREEZE_SUBSTRINGS
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One train step (JAX ``train_step_body``): forward in train mode (the
-    BatchNorm statistics update), the loss, its gradients (zeroed for the
+    BatchNorm statistics update, dropout from ``state.dropout_generator``),
+    the loss, its gradients (zeroed for the
     frozen parameters while ``frozen``), then ``apply_gradients``. Returns
     the loss and this batch's confusion matrix, both on the device; the
     step's gradients stay in each parameter's ``.grad``."""
     model = state.model
     model.train()
-    logits = model(batch["image"])
+    logits = model(batch["image"], generator=state.dropout_generator())
     loss = cross_entropy_loss(logits, batch["label"], batch["weight"], label_smoothing)
     names, params = zip(*state.params)
     grads = dict(zip(names, torch.autograd.grad(loss, params, allow_unused=True)))

@@ -1,11 +1,11 @@
 """The PyTorch port's MobileNetV3-Large models against the JAX package's, on
 the CPU.
 
-As in ``test_torch_model.py``: the JAX ``TextureModel`` is initialised from
-``PRNGKey(0)``, every BatchNorm leaf and every bias is replaced by numpy
-draws (so a swapped stage-0 BatchNorm or a transposed depthwise kernel
-cannot hide behind an identity), ``state_dict_from_flax`` carries the tree
-into the port, and both models see the same numpy images.
+As in ``test_torch_model.py``: the JAX ``TextureModel``'s variables are
+numpy draws on its traced tree, every BatchNorm leaf and every bias away
+from its identity value (so a swapped stage-0 BatchNorm or a transposed
+depthwise kernel cannot hide behind an identity), ``state_dict_from_flax``
+carries the tree into the port, and both models see the same numpy images.
 
 At 96 px the taps are 48²×16, 24²×24, 12²×40, 6²×112 and 3²×960: the first
 two take the large-map kernel's route (K2), the rest the small-map one
@@ -24,7 +24,7 @@ from neighbour_feature_pooling_tpu.models import get_model as jax_get_model
 from neighbour_feature_pooling_tpu.models.import_torch import import_reference_checkpoint
 from neighbour_feature_pooling_tpu_torch.models import get_model, state_dict_from_flax
 from neighbour_feature_pooling_tpu_torch.ops.nfp_cuda import _route
-from test_torch_model import _randomise
+from test_torch_model import _draw_variables, one_torch_thread  # noqa: F401
 
 NUM_CLASSES = 5
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -35,17 +35,18 @@ _JAX_CASES = {}
 
 
 def _jax_case(variant, size):
-    """(init, variables, images, logits) of the JAX model, once per case.
-    Applied eagerly: one XLA compile per op is cheaper here than one jit of
-    the whole network per variant."""
+    """(variables, images, logits) of the JAX model, once per case: numpy
+    variables on the traced tree (``_draw_variables``), applied by one
+    jit (~2-6 s; the eager apply's compile of each op took 26 s at the
+    first case)."""
     key = (variant, size)
     if key not in _JAX_CASES:
         model = jax_get_model("mobilenetv3", variant, NUM_CLASSES)
         x = np.random.default_rng(size).standard_normal((2, size, size, 3)).astype(np.float32)
-        init = model.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(x[:1]), train=False)
-        variables = _randomise(init, seed=size)
-        logits = np.asarray(model.apply(variables, x, train=False))
-        _JAX_CASES[key] = (init, variables, x, logits)
+        variables = _draw_variables(model, x[:1], train=False, seed=size)
+        logits = np.asarray(jax.jit(lambda v, xx: model.apply(v, xx, train=False))(
+            variables, x))
+        _JAX_CASES[key] = (variables, x, logits)
     return _JAX_CASES[key]
 
 
@@ -60,7 +61,7 @@ CASES = [(v, 96) for v in VARIANTS] + [("multi_stage_nfp", 64), ("gap_only", 57)
 
 @pytest.mark.parametrize("variant,size", CASES)
 def test_logits_match_jax(variant, size):
-    _, variables, x, want = _jax_case(variant, size)
+    variables, x, want = _jax_case(variant, size)
     model = _port_model(variant, variables)
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
@@ -87,7 +88,7 @@ def test_multi_stage_taps_take_the_jax_routes(size, routes):
 def test_state_dict_keys_are_the_timm_keys():
     """timm's names, including the stage-0 DepthwiseSeparableConv
     (conv_dw/bn1/conv_pw/bn2) and blocks.6.0.conv/bn1."""
-    _, variables, _, _ = _jax_case("multi_stage_nfp", 96)
+    variables, _, _ = _jax_case("multi_stage_nfp", 96)
     keys = set(_port_model("multi_stage_nfp", variables).state_dict())
     for k in ("backbone.conv_stem.weight", "backbone.bn1.running_mean",
               "backbone.blocks.0.0.conv_dw.weight", "backbone.blocks.0.0.bn1.weight",
@@ -113,10 +114,10 @@ def test_state_dict_round_trips_through_the_jax_importer(variant):
     """The port's state_dict, read by the JAX package's own reference
     checkpoint importer (timm_port.port_mobilenetv3), gives back the
     original flax tree exactly."""
-    init, variables, _, _ = _jax_case(variant, 96)
+    variables, _, _ = _jax_case(variant, 96)
     sd = {k: v.numpy() for k, v in _port_model(variant, variables).state_dict().items()}
     back, _ = import_reference_checkpoint(sd, "mobilenetv3", variant,
-                                          validate_against=init)
+                                          validate_against=variables)
     want = jax.tree_util.tree_leaves_with_path(
         {k: variables[k] for k in ("params", "batch_stats")})
     got = dict(jax.tree_util.tree_leaves_with_path(

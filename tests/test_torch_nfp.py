@@ -33,6 +33,7 @@ from neighbour_feature_pooling_tpu_torch.ops import (
     pad_spatial,
 )
 from neighbour_feature_pooling_tpu_torch.ops.nfp_cuda import _route
+from test_torch_model import one_torch_thread  # noqa: F401
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -26,6 +26,7 @@ from neighbour_feature_pooling_tpu_torch.ops.measures import (
 from neighbour_feature_pooling_tpu_torch.ops.neighborhood import nfp_output_size, pad_index
 from neighbour_feature_pooling_tpu_torch.ops.nfp_cuda import (
     _K2_LANE_FLOATS, _K2_MIN_BLOCKS, _K2_SMEM_BUDGET, _k2_plan)
+from test_torch_model import one_torch_thread  # noqa: F401
 
 JAX_NFP = importlib.import_module("neighbour_feature_pooling_tpu.ops.nfp_pallas")
 TOL = dict(rtol=1e-4, atol=1e-4)

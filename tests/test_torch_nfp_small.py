@@ -22,6 +22,7 @@ from neighbour_feature_pooling_tpu_torch.ops.neighborhood import (
     nfp_output_size, nfp_reference, pad_index)
 from neighbour_feature_pooling_tpu_torch.ops.nfp_cuda import (
     _K1_MAX_TILES, _K1_SMEM_BUDGET, _k1_plan)
+from test_torch_model import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

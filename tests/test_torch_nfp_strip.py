@@ -37,6 +37,7 @@ from neighbour_feature_pooling_tpu_torch.ops.nfp_cuda import (
     _K2_SMEM_BUDGET, _k2_plan, _k2_smem_bytes, _kernel_route)
 from neighbour_feature_pooling_tpu_torch.tools import bench_nfp_kernel, sweep_nfp_kernel
 from test_torch_nfp_large import check_plan_rules, emulate_k2
+from test_torch_model import one_torch_thread  # noqa: F401
 
 JAX_NFP = importlib.import_module("neighbour_feature_pooling_tpu.ops.nfp_pallas")
 TOL = dict(atol=2e-5, rtol=1e-5)

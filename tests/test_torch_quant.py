@@ -38,6 +38,7 @@ from neighbour_feature_pooling_tpu_torch.ops import (
     dequant_epilogue, int8_conv2d, int8_conv2d_reference, int8_gemm, int8_gemm_reference)
 from neighbour_feature_pooling_tpu_torch.ops.int8_conv import pack_conv_weight
 from neighbour_feature_pooling_tpu_torch.ops.int8_gemm import _tile_plan, a_mode, pack_weight
+from test_torch_model import _draw_variables, one_torch_thread  # noqa: F401
 
 SIZE = 32
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -329,8 +330,7 @@ def resnet():
     builder of the port's float model with the same weights."""
     model = jax_get_model("resnet18", "texture_nfp", 5)
     x = np.random.default_rng(3).standard_normal((2, SIZE, SIZE, 3)).astype(np.float32)
-    init = model.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(x[:1]), train=False)
-    v = _randomise(init, seed=3)
+    v = _draw_variables(model, x[:1], train=False, seed=3)
     folding = jq.build_bn_folding(model, v, jnp.asarray(x))
     cfg = jq.QuantConfig(bn_folding=folding)
     scales = jq.calibrate_act_scales(model, v, [jnp.asarray(x)], config=cfg)
@@ -532,7 +532,8 @@ def test_mobilenetv3_folding_and_chain_guard():
     the JAX test (test_quant.py:640-652, :752-775)."""
     jm = jax_get_model("mobilenetv3", "gap_only", 3)
     x = np.random.default_rng(12).standard_normal((1, 64, 64, 3)).astype(np.float32)
-    v = jm.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(x), train=False)
+    v = jax.jit(lambda k, xx: jm.init({"params": k}, xx, train=False))(  # one compile, not
+        jax.random.PRNGKey(0), jnp.asarray(x))                            # one per op
     model = get_model("mobilenetv3", "gap_only", 3)
     model.load_state_dict(state_dict_from_flax(v))
     model.eval()

@@ -1,8 +1,9 @@
 """The PyTorch port's ResNet50 models against the JAX package's, on the CPU.
 
-One JAX ResNet50 + texture_nfp tree, initialised from ``PRNGKey(0)`` with
-every BatchNorm statistic, scale and shift and every bias then replaced by
-numpy draws (as ``tests/test_torch_model.py`` does), serves every case:
+One JAX ResNet50 + texture_nfp tree of numpy draws on the traced tree
+(``tests/test_torch_model.py::_draw_variables``: every BatchNorm
+statistic, scale and shift and every bias away from its identity value)
+serves every case:
 ``gap_only`` is the same tree without the ``pool`` head, and the backbone
 subtree serves ``return_stages`` and the timm porter. ``state_dict_from_flax``
 carries it into the port.
@@ -26,26 +27,11 @@ from neighbour_feature_pooling_tpu.models.backbones.timm_port import port_resnet
 from neighbour_feature_pooling_tpu.train import engine as jengine
 from neighbour_feature_pooling_tpu_torch.models import get_model, state_dict_from_flax
 from neighbour_feature_pooling_tpu_torch.train import engine
+from test_torch_model import _draw_variables, one_torch_thread  # noqa: F401
 
 NUM_CLASSES = 3
 TOL = dict(rtol=1e-4, atol=1e-4)
 LR = 1e-3
-
-
-def _randomise(variables, seed):
-    """Numpy draws for every BatchNorm leaf and every bias."""
-    rng = np.random.default_rng(seed)
-    draws = {"var": lambda s: rng.uniform(0.5, 2.0, s),
-             "mean": lambda s: 0.1 * rng.standard_normal(s),
-             "scale": lambda s: rng.uniform(0.5, 1.5, s),
-             "bias": lambda s: 0.1 * rng.standard_normal(s)}
-
-    def leaf(path, v):
-        name = getattr(path[-1], "key", str(path[-1]))
-        v = np.asarray(v)
-        return draws[name](v.shape).astype(np.float32) if name in draws else v
-
-    return jax.tree_util.tree_map_with_path(leaf, variables)
 
 
 def _images(shape, seed):
@@ -56,9 +42,8 @@ def _images(shape, seed):
 def jax_case():
     """The JAX model and its randomised variables, shared by every test."""
     model = jax_get_model("resnet50", "texture_nfp", NUM_CLASSES)
-    init = jax.jit(lambda k, x: model.init({"params": k}, x, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
-    return model, _randomise(jax.tree_util.tree_map(np.asarray, init), seed=50)
+    return model, _draw_variables(model, np.zeros((1, 64, 64, 3), np.float32), train=False,
+                                  seed=50)
 
 
 def _without_pool(variables):

@@ -27,6 +27,7 @@ from neighbour_feature_pooling_tpu_torch import serve as torch_serve
 from neighbour_feature_pooling_tpu_torch.models import state_dict_from_flax, torch_module_name
 from neighbour_feature_pooling_tpu_torch.ops import int8_conv2d, int8_gemm
 from neighbour_feature_pooling_tpu_torch.serve import Predictor
+from test_torch_model import one_torch_thread  # noqa: F401
 
 KW = dict(model_type="resnet18", model_variant="texture_nfp", num_classes=5,
           batch_size=4, input_size=64, resize_size=72)
@@ -122,7 +123,9 @@ def test_unknown_quantize_mode_raises():
 
 @pytest.mark.parametrize("model_type,variant", [("resnet50", "texture_nfp"),
                                                 ("vittiny", "gap_only"),
-                                                ("resnet18", "nfp_at_layer")])
+                                                ("resnet18", "nfp_at_layer"),
+                                                ("resnet18", "texture_deepten"),
+                                                ("resnet18", "se_gate")])
 def test_int8_on_unported_models_raises(model_type, variant):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
         Predictor(**dict(KW, model_type=model_type, model_variant=variant), quantize="int8",

@@ -19,6 +19,7 @@ it.
 """
 
 import copy
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -68,22 +69,44 @@ def test_safe_sqrt_grad_matches_jax():
 # ---------------------------------------------------------- nfp input grads
 
 
-def _jax_nfp_vjp(x, g, measure, fuse_gap):
-    out, vjp = jax.vjp(lambda v: jops.nfp(v, 1, measure, padding=1, fuse_gap=fuse_gap),
-                       jnp.asarray(x))
-    return np.asarray(out), np.asarray(vjp(jnp.asarray(g))[0])
+_JAX_VJPS = {}
+
+
+def _grad_case(measure, fuse_gap):
+    """(x, cotangent) of one gradient case."""
+    g = _x((2, 8) if fuse_gap else (2, 5, 5, 8), seed=100)
+    return _x((2, 5, 5, 8), seed=ALL_MEASURES.index(measure)), g
+
+
+def _jax_nfp_vjp(measure, fuse_gap):
+    """(output, input gradient) of the JAX ``nfp``; both forms of a measure
+    come from one jitted function (one compile)."""
+    if measure not in _JAX_VJPS:
+        def both(cases):
+            out = {}
+            for fuse, (x, g) in cases.items():
+                y, vjp = jax.vjp(lambda v: jops.nfp(v, 1, measure, padding=1, fuse_gap=fuse), x)
+                out[fuse] = (y, vjp(g)[0])
+            return out
+
+        cases = {fuse: tuple(map(jnp.asarray, _grad_case(measure, fuse))) for fuse in (False, True)}
+        _JAX_VJPS[measure] = jax.tree_util.tree_map(np.asarray, jax.jit(both)(cases))
+    return _JAX_VJPS[measure][fuse_gap]
 
 
 @pytest.mark.parametrize("fuse_gap", [False, True])
 @pytest.mark.parametrize("measure", ALL_MEASURES)
-def test_nfp_input_grads_match_jax_vjp(measure, fuse_gap):
+def test_nfp_input_grads_match_jax_vjp(measure, fuse_gap, monkeypatch):
     """The Function's backward (plain version as the kernel) and the CPU
     route's autograd against ``jax.vjp`` of the JAX ``nfp``: 5×5 map, R=1,
-    reflect padding 1."""
-    x = _x((2, 5, 5, 8), seed=ALL_MEASURES.index(measure))
-    shape = (2, 8) if fuse_gap else (2, 5, 5, 8)
-    g = _x(shape, seed=100)
-    want_out, want_dx = _jax_nfp_vjp(x, g, measure, fuse_gap)
+    reflect padding 1. The JAX ``nfp`` computes its forward through its XLA
+    oracle here, not its Pallas kernel in interpret mode (a quarter of the
+    time; the kernel's forward is held in ``test_torch_nfp.py``): its
+    backward differentiates the oracle either way (nfp_pallas.py:647-661)."""
+    monkeypatch.setattr(importlib.import_module("neighbour_feature_pooling_tpu.ops.nfp_pallas"),
+                        "pallas_supported", lambda measure, stride: False)
+    x, g = _grad_case(measure, fuse_gap)
+    want_out, want_dx = _jax_nfp_vjp(measure, fuse_gap)
     ref_kw = dict(radius=1, measure=measure, padding=1, fuse_gap=fuse_gap)
 
     def plain_kernel(xx):
@@ -119,24 +142,46 @@ def test_function_backward_recomputes_the_plain_version():
     assert len(calls) == 2
 
 
-@pytest.mark.parametrize("case", ["constant", "dead_channels", "zeros"])
+DEGENERATE = ("constant", "dead_channels", "zeros")
+_DEGENERATE_JAX = {}
+
+
+def _degenerate_input(case):
+    if case == "constant":
+        return np.ones((1, 5, 5, 8), np.float32) * 0.37
+    if case == "zeros":
+        return np.zeros((1, 5, 5, 8), np.float32)
+    x = np.random.default_rng(3).standard_normal((1, 5, 5, 8)).astype(np.float32)
+    x[..., :4] = 0.0
+    return x
+
+
+def _jax_degenerate(measure, case):
+    """JAX's loss and gradient of one case: the three cases of a measure as
+    one batch of three maps through one jitted vjp (each map's loss is its
+    own sum: the NFP of one image never reads another's)."""
+    if measure not in _DEGENERATE_JAX:
+        def losses_and_grads(xs):
+            vals, vjp = jax.vjp(lambda v: jnp.sum(jops.nfp_reference(v, 1, measure, padding=1),
+                                                  axis=(1, 2, 3)), xs)
+            return vals, vjp(jnp.ones(len(DEGENERATE)))[0]
+
+        vals, grads = map(np.asarray, jax.jit(losses_and_grads)(
+            jnp.asarray(np.concatenate([_degenerate_input(c) for c in DEGENERATE]))))
+        _DEGENERATE_JAX[measure] = {c: (float(vals[i]), grads[i:i + 1])
+                                    for i, c in enumerate(DEGENERATE)}
+    return _DEGENERATE_JAX[measure][case]
+
+
+@pytest.mark.parametrize("case", DEGENERATE)
 @pytest.mark.parametrize("measure", MEASURE_NAMES)
 def test_nfp_grads_finite_at_degenerate_inputs(measure, case):
     """Every measure's backward is finite where centre == neighbour, where
     channels are dead and on the all-zero map (tests/test_grad_robustness.py
     on the JAX side); the loss and the gradient equal JAX's, including the
     subgradient of |x| at 0."""
-    rng = np.random.default_rng(3)
-    if case == "constant":
-        x = np.ones((1, 5, 5, 8), np.float32) * 0.37
-    elif case == "zeros":
-        x = np.zeros((1, 5, 5, 8), np.float32)
-    else:
-        x = rng.standard_normal((1, 5, 5, 8)).astype(np.float32)
-        x[..., :4] = 0.0
-    with jax.disable_jit():
-        val, want = jax.value_and_grad(
-            lambda v: jnp.sum(jops.nfp_reference(v, 1, measure, padding=1)))(jnp.asarray(x))
+    x = _degenerate_input(case)
+    val, want = _jax_degenerate(measure, case)
     xt = torch.from_numpy(x).requires_grad_(True)
     loss = torch.sum(nfp(xt, 1, measure, padding=1))
     loss.backward()

@@ -26,6 +26,7 @@ from neighbour_feature_pooling_tpu_torch.models import get_model
 from neighbour_feature_pooling_tpu_torch.serve import Predictor
 from neighbour_feature_pooling_tpu_torch.train import Trainer, TrainerConfig, checkpoint
 from neighbour_feature_pooling_tpu_torch.train.engine import create_train_state
+from test_torch_model import one_torch_thread  # noqa: F401
 
 NUM_CLASSES = 2
 
@@ -74,9 +75,9 @@ def _dm(num_samples=32, batch_size=16):
                                image_size=16, batch_size=batch_size)
 
 
-def _trainer(tmp_path, tag, max_epochs, **cfg):
+def _trainer(tmp_path, tag, max_epochs, variant="texture_nfp", **cfg):
     cfg = dict(dict(learning_rate=1e-3, patience=10, freeze_nfp=False), **cfg)
-    model = get_model("resnet18", "texture_nfp", NUM_CLASSES)
+    model = get_model("resnet18", variant, NUM_CLASSES)
     return Trainer(model, NUM_CLASSES, TrainerConfig(
         max_epochs=max_epochs, log_dir=str(tmp_path / f"l{tag}"),
         ckpt_dir=str(tmp_path / f"c{tag}"), **cfg), device="cpu")
@@ -118,6 +119,31 @@ def test_fit_resume_and_history_identical(tmp_path):
         assert checkpoint.checkpoint_exists(str(tmp_path / "cp" / name))
         assert (tmp_path / "cp" / f"{name}.meta.json").exists()
     assert json.load(open(tmp_path / "cp" / "last.meta.json"))["epoch"] == 3
+
+
+def test_dropout_masks_follow_the_step_across_a_resume(tmp_path):
+    """gap_mlp (dropout 0.2): train(2) and train(1) + resume(1) give the
+    same second epoch, because each step's masks come from (seed + 1,
+    step), and the step rides the checkpoint."""
+    full = _trainer(tmp_path, "f", 2, variant="gap_mlp").fit(_dm())["history"]
+    _trainer(tmp_path, "p", 1, variant="gap_mlp").fit(_dm())
+    part = _trainer(tmp_path, "p", 2, variant="gap_mlp").fit(_dm(), resume=True)["history"]
+    assert [h["epoch"] for h in part] == [1]
+    assert full[1]["train"]["loss"] == part[0]["train"]["loss"]
+    assert full[1]["val"]["loss"] == part[0]["val"]["loss"]
+    assert full[0]["train"]["loss"] != full[1]["train"]["loss"]
+
+
+def test_cli_passes_the_head_options_to_the_model():
+    """``--nfp_stride`` reaches the legacy heads (JAX cli.py:246);
+    ``num_codes`` and ``radam_m`` have no flag and keep their defaults."""
+    kw = cli._model_kwargs({"nfp_stride": 2, "nfp_padding": 1})
+    head = get_model("resnet18", "nfp_conv_mlp", NUM_CLASSES, **kw).head
+    assert (head.stride, head.padding) == (2, 1)
+    assert get_model("resnet18", "texture_deepten", NUM_CLASSES, **kw).encoding.codewords.shape \
+        == (32, 512)
+    assert get_model("vittiny", "texture_radam", NUM_CLASSES, **kw).pool.alphas.shape \
+        == (4, 1, 192)
 
 
 def test_early_stopping_counters_survive_resume(tmp_path):
@@ -207,9 +233,7 @@ def test_parser_flags_are_the_jax_flags_plus_device():
 
 
 @pytest.mark.parametrize("flags", [["--seed_parallel"], ["--zero", "fsdp"], ["--bf16"],
-                                   ["--device_data"], ["--export_dir", "x"],
-                                   ["--model_type", "resnet50", "--model_variant",
-                                    "texture_fractal"]])
+                                   ["--device_data"], ["--export_dir", "x"], ["--remat"]])
 def test_unported_flags_exit_naming_the_roadmap(flags):
     with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item"):
         cli.main(["--dataset", "synthetic", "--device", "cpu"] + flags)

@@ -1,8 +1,9 @@
 """The PyTorch port's ViT-Tiny models against the JAX package's, on the CPU.
 
-JAX trees are initialised from ``PRNGKey(0)``; every LayerNorm scale and
-shift, every bias, ``cls_token`` and ``pos_embed`` is then replaced by
-numpy draws, so a swapped or transposed mapping (the fused qkv above all)
+JAX trees are numpy draws on the tree traced from ``init``
+(``test_torch_model.py::_draw_variables``); every LayerNorm scale and
+shift, every bias, ``cls_token`` and ``pos_embed`` is then drawn away from
+its identity value, so a swapped or transposed mapping (the fused qkv above all)
 cannot hide behind an identity norm, a zero bias or a zero CLS token.
 ``state_dict_from_flax`` carries them into the port.
 
@@ -26,6 +27,7 @@ from neighbour_feature_pooling_tpu_torch.models import get_model, state_dict_fro
 from neighbour_feature_pooling_tpu_torch.models.from_jax import flax_module_path, torch_module_name
 from neighbour_feature_pooling_tpu_torch.models.backbones.vit import ViT, tokens_to_map
 from neighbour_feature_pooling_tpu_torch.train import engine
+from test_torch_model import _draw_variables, one_torch_thread  # noqa: F401
 
 NUM_CLASSES = 3
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -54,8 +56,8 @@ def _images(shape, seed):
 
 
 def _init(model, size):
-    return jax.jit(lambda k, x: model.init({"params": k}, x, train=False))(
-        jax.random.PRNGKey(0), jnp.zeros((1, size, size, 3)))
+    return _draw_variables(model, np.zeros((1, size, size, 3), np.float32), train=False,
+                           seed=size)
 
 
 @pytest.fixture(scope="module")

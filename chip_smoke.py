@@ -49,21 +49,32 @@ Drives ``neighbour_feature_pooling_tpu_torch`` (never JAX) on the card:
    texture_nfp;
 7. int8 kernels: K4 (``int8_gemm``) and K5 (``int8_conv``) against their
    plain versions on the card, bit for bit (``torch.equal``), at every
-   ResNet18 shape of int8 serving at B=32 and some at B=128, on ragged
-   shapes that reach both tile sizes and the 16-byte, 4-byte and byte
-   paths of A, in the s32, fused fp32 and s8 + ReLU forms, with the weight
-   packed once (as the model does; what the times are of) and packed in
-   the call; times beside the
-   bound (bytes at 3.35 TB/s or int8 operations at 1,979 TOPS), K4 beside
+   ResNet18 shape of int8 serving at B=32 and some at B=128, at ResNet50's,
+   ViT-Tiny's (M = B·200 and a ragged B·197) and MobileNetV3's (a 4-byte A
+   path, M = B) B=32 GEMMs, ResNet50's strided 3x3s and ViT's 16x16/16
+   patch embed, on ragged shapes that reach both tile sizes and the
+   16-byte, 4-byte and byte paths of A, in the s32, fused fp32 and s8 +
+   ReLU forms, with the weight packed once (as the model does; what the
+   times are of) and packed in the call; times beside the bound (bytes at
+   3.35 TB/s or int8 operations at 1,979 TOPS), K4 beside
    ``torch._int_mm`` (cuBLASLt s8, a yardstick the port never calls), K5
    beside a cuDNN fp32 conv with TF32 off (context only);
-8. serve ResNet18 int8: an int8 ResNet18 + texture_nfp ``Predictor``
-   answers the three requests with 17 K5, 3 K4 and 1 K1 launches per
-   batch and matches a CPU int8 ``Predictor``; then ``calibrate`` on 64
-   images, the same again with 8 of the K5 launches emitting s8, against
-   a CPU ``Predictor`` given the card's scales and chains; forward times
-   at B=32 and B=128, dynamic and calibrated, beside fp32 and the host's
-   time to enqueue a forward, and a torch.profiler split;
+8. serve int8: an int8 ``Predictor`` (``serve_int8``) of ResNet18 +
+   texture_nfp (17 K5, 3 K4, 1 K1 launches per batch), then of ResNet50
+   and ViT-Tiny + texture_nfp and MobileNetV3 + gap_only and
+   multi_stage_nfp (``INT8_PATHS``: 17 / 1 / 0 / 0 K5, 36 / 48 / 36 / 37
+   K4), answers the three requests, dynamic and then ``calibrate()``d on
+   64 images, with one s8-emitting K4 or K5 launch per chain and batch (8
+   on ResNet18, 32 on ResNet50, none on the others); each run against a
+   CPU int8 ``Predictor`` (TF32 off; the calibrated one given the card's
+   scales and chains) layer by layer, every int8 layer bit for bit on the
+   card's input to it and the probabilities within 1e-4, and free-running
+   (held to 1e-4 where only exact ops feed the int8 layers:
+   ``int8_free_running``); forward times at B=32 and B=128 beside fp32,
+   the host's time to enqueue a forward, and a torch.profiler split into
+   K4, K5 and the rest; then the int8 heads: one batch of 8 of every other
+   registry pair, K4 and K5 launched once per int8 layer call, against
+   the CPU the same way;
 9. kernel entry: the port's bench tool
    (``tools/bench_nfp_kernel.py``) in-process through ``ops.nfp_kernel``,
    the counterpart of the JAX ``nfp_pallas``, at its four shapes, fused and
@@ -465,7 +476,7 @@ def match_cpu(Predictor, pred, kw, batches, tag, setup=None):
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "weights.pt")
         torch.save(pred.state_dict(), path)
-        cpu = Predictor(**kw, checkpoint=path, device="cpu")
+        cpu = Predictor(**dict(kw, checkpoint=path), device="cpu")
     if setup is not None:
         setup(cpu)
     worst = 0.0
@@ -476,6 +487,84 @@ def match_cpu(Predictor, pred, kw, batches, tag, setup=None):
     if worst > 1e-4:
         raise AssertionError(f"{tag}: max |dprob| vs the CPU predictor {worst:.3e} > 1e-4")
     print(f"{tag}: matches the CPU Predictor: labels equal, max |dprob| {worst:.3e} (<= 1e-4)")
+
+
+#: the heads whose int8 linears read fp32 means and matmuls
+INT8_HEADS_AFTER_FP32 = ("gap_mlp", "nfp_conv_mlp", "gap_nfp_conv_mlp_concat",
+                         "gap_nfp_noconv_mlp_concat", "nfp_head", "multi_radius_nfp",
+                         "adaptive_fusion_nfp", "se_gate")
+
+
+def int8_free_running(model_type, variant):
+    """Whether an int8 model's free-running answers on the card can match
+    the CPU's within 1e-4: only where every op that feeds an int8 layer is
+    exact on both (ResNet's folded convs, adds, ReLU and max-pool; the
+    fractal head's conv reads the backbone's map). An fp32 op that rounds
+    differently on the card in the last bit (LayerNorm and attention,
+    depthwise convs and SE, a mean before a head's linear) moves values
+    across rounding steps of the next quantization, and those steps
+    compound through the network."""
+    return model_type in ("resnet18", "resnet50") and variant not in INT8_HEADS_AFTER_FP32
+
+
+def match_cpu_int8(Predictor, pred, kw, batches, tag, setup=None, exact=True):
+    """An int8 Predictor against a CPU one with the same weights (and
+    ``setup(cpu)``): layer by layer on the first batch, each int8 layer of
+    the CPU model given the card's input to it must give the card's output
+    bit for bit, and the CPU forward then goes on from the card's output,
+    to probabilities within 1e-4 of the card's with the labels equal; then
+    free-running, on every batch held to the same where ``exact``
+    (``int8_free_running``), else on the first batch and printed."""
+    from neighbour_feature_pooling_tpu_torch.quant import Int8Conv2d, Int8Linear
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "weights.pt")
+        torch.save(pred.state_dict(), path)
+        cpu = Predictor(**dict(kw, checkpoint=path), device="cpu")
+    if setup is not None:
+        setup(cpu)
+
+    def int8_layers(model):
+        return [(n, m) for n, m in model.named_modules() if isinstance(m, (Int8Conv2d, Int8Linear))]
+
+    x = torch.from_numpy(np.ascontiguousarray(batches[0][0][:pred.batch_size]))
+    seen, differ = {}, []
+    hooks = [m.register_forward_hook(lambda mod, args, out, n=n: seen.__setitem__(
+        n, (args[0].cpu(), out.cpu()))) for n, m in int8_layers(pred.model)]
+    with torch.inference_mode():
+        card = torch.softmax(pred.model(x.to("cuda")), dim=-1).cpu()
+    for h in hooks:
+        h.remove()
+
+    def compare(mod, args, out, n):
+        if not torch.equal(out, seen[n][1]):
+            differ.append(n)
+        return seen[n][1]
+
+    hooks = [h for n, m in int8_layers(cpu.model) for h in (
+        m.register_forward_pre_hook(lambda mod, args, n=n: (seen[n][0],)),
+        m.register_forward_hook(lambda mod, args, out, n=n: compare(mod, args, out, n)))]
+    with torch.inference_mode():
+        forced = torch.softmax(cpu.model(x), dim=-1)
+    for h in hooks:
+        h.remove()
+    if differ or len(seen) != len(int8_layers(cpu.model)):
+        raise AssertionError(f"{tag}: {len(differ)} of {len(seen)} int8 layers differ from the "
+                             f"CPU's on the same input: {differ[:4]}")
+    worst = float((card - forced).abs().max())
+    if not torch.equal(card.argmax(-1), forced.argmax(-1)) or worst > 1e-4:
+        raise AssertionError(f"{tag}: layer by layer, max |dprob| {worst:.3e} vs the CPU")
+    free, same = 0.0, True
+    for images, out in batches if exact else batches[:1]:
+        want = cpu.predict(images, preprocessed=True)
+        same &= bool((out["label"] == want["label"]).all())
+        free = max(free, float(np.abs(out["probabilities"] - want["probabilities"]).max()))
+    if exact and (not same or free > 1e-4):
+        raise AssertionError(f"{tag}: free-running max |dprob| {free:.3e} vs the CPU "
+                             f"(labels equal: {same})")
+    print(f"{tag}: matches the CPU Predictor: {len(seen)} int8 layers equal bit for bit on the "
+          f"card's inputs, then max |dprob| {worst:.3e} (<= 1e-4), labels equal; free-running "
+          f"max |dprob| {free:.3e}, labels equal {same}"
+          + (" (<= 1e-4)" if exact else " (not held: an fp32 op feeds an int8 layer)"))
 
 
 def answer(pred, requests, tag):
@@ -505,13 +594,15 @@ class Launches:
     def reset(self):
         for w in self.wrappers.values():
             w.launches = 0
-        self.wrappers["int8_conv"].s8_launches = 0
+        for k in ("int8_gemm", "int8_conv"):
+            self.wrappers[k].s8_launches = 0
 
     def read(self):
         return {k: w.launches for k, w in self.wrappers.items()}
 
     def s8(self):
-        return self.wrappers["int8_conv"].s8_launches
+        """The K4 and K5 launches that emitted int8 (chained producers)."""
+        return sum(self.wrappers[k].s8_launches for k in ("int8_gemm", "int8_conv"))
 
 
 def head_map(model, x):
@@ -788,7 +879,16 @@ K4_SHAPES = [("layer2 downsample B=32", 25088, 64, 128), ("layer3 downsample B=3
              ("layer4 downsample B=32", 1568, 256, 512), ("layer2 downsample B=128", 100352, 64, 128),
              ("layer3 downsample B=128", 25088, 128, 256), ("layer4 downsample B=128", 6272, 256, 512),
              ("ragged M, K, N", 1000, 100, 70), ("ragged, tiny", 37, 300, 9),
-             ("ragged, K 37 (byte path)", 200, 37, 24)]
+             ("ragged, K 37 (byte path)", 200, 37, 24),
+             # the int8 paths of ResNet50, ViT-Tiny and MobileNetV3 at B=32
+             ("resnet50 layer1 conv3 B=32", 100352, 64, 256),
+             ("resnet50 layer1 conv1 B=32", 100352, 256, 64),
+             ("resnet50 layer3 conv3 B=32", 6272, 256, 1024),
+             ("resnet50 layer3 conv1 B=32", 6272, 1024, 256),
+             ("vittiny qkv B=32", 6400, 192, 576), ("vittiny fc2 B=32", 6400, 768, 192),
+             ("vittiny qkv, 197 tokens (ragged M) B=32", 6304, 192, 576),
+             ("mobilenetv3 conv_pw Cin 72 (4-byte A) B=32", 100352, 72, 24),
+             ("mobilenetv3 SE conv_expand (M = B, Cin 168) B=32", 32, 168, 672)]
 #: output forms: (label, with scale and bias, out dtype, relu)
 INT8_FORMS = [("s32", False, torch.int32, False), ("fp32", True, torch.float32, False),
               ("s8 relu", True, torch.int8, True)]
@@ -810,6 +910,11 @@ K5_SHAPES = [
     ("3x3 Cin 16, M 50000, Cout 70 (large tile)", (5, 100, 100, 16), (3, 3, 70), "SAME", (1, 1)),
     ("5x5/2 Cin 3, asymmetric pads", (3, 37, 41, 3), (5, 5, 24), ((2, 1), (0, 3)), (2, 2)),
     ("3x3 Cin 5 (byte path)", (2, 17, 19, 5), (3, 3, 40), "SAME", (1, 1)),
+    # ResNet50's layer1 and layer4 3x3 are ResNet18's above; its strided ones
+    ("resnet50 layer2.0 3x3/2 B=32", (32, 56, 56, 128), (3, 3, 128), ((1, 1), (1, 1)), (2, 2)),
+    ("resnet50 layer4.0 3x3/2 B=32", (32, 14, 14, 512), (3, 3, 512), ((1, 1), (1, 1)), (2, 2)),
+    ("vittiny patch embed 16x16/16 B=32", (32, 224, 224, 3), (16, 16, 192), ((0, 0), (0, 0)),
+     (16, 16)),
 ]
 #: the forms each case runs in: every form where the main path emits it or
 #: the case is ragged, else the main path's fp32 form
@@ -890,13 +995,14 @@ def check_int8_kernels(int8_gemm, int8_gemm_reference, pack_weight,
             row = check(f"{label} {form} ({m},{k})x({k},{n})",
                         lambda: int8_gemm(a, b, b_packed=bp, **kw), lambda: int8_gemm(a, b, **kw),
                         lambda: int8_gemm_reference(a, b, **kw), 2 * m * n * k, in_bytes, m * n)
-            if f"{label} {form}" == K4_MAIN:
+            if form == "fp32":
                 lib_ms, why = _int_mm_ms(a, b)
                 s32_ms = median_ms(lambda: int8_gemm(a, b, b_packed=bp))
                 print(f"  {label}: torch._int_mm (cuBLASLt s8 -> s32, no epilogue) "
                       + (f"{lib_ms * 1e3:.2f} us" if lib_ms is not None else f"refused: {why}")
                       + f"; K4 in its s32 form {s32_ms * 1e3:.2f} us")
-                rows["int8_gemm"] = dict(row, library_ms=lib_ms)
+                if f"{label} {form}" == K4_MAIN:
+                    rows["int8_gemm"] = dict(row, library_ms=lib_ms)
     print("kernels: int8_conv (K5) against int8_conv2d_reference on the card (torch.equal)")
     for label, xshape, (kh, kw_, cout), padding, strides in K5_SHAPES:
         x, w = s8(xshape), s8((kh, kw_, xshape[3], cout))
@@ -951,16 +1057,69 @@ def forward_ms(model, x, tag):
     return ms
 
 
-def serve_resnet18_int8(Predictor, launches):
-    """The third slice's main path: int8 ResNet18 + texture_nfp, dynamic, then
-    calibrated; returns its launches of each kernel."""
-    kw = dict(model_type="resnet18", model_variant="texture_nfp", num_classes=21,
-              batch_size=32, input_size=224, quantize="int8")
+#: the int8 main paths: (model type, variant) → launches per batch (K5,
+#: K4, K1, K2; no K3) and the s8 chains ``calibrate()`` keeps, as the JAX
+#: package finds them (tests/test_torch_int8_models.py): every
+#: conv1 → conv2 of a ResNet18 block; conv1 → conv2 → conv3 of each of
+#: ResNet50's 16 bottlenecks (16 on K4, 16 on K5); none on ViT-Tiny, and on
+#: MobileNetV3 the end-to-end guard drops every candidate
+INT8_PATHS = {
+    ("resnet18", "texture_nfp"): (dict(int8_conv=17, int8_gemm=3, nfp_small=1), 8),
+    ("resnet50", "texture_nfp"): (dict(int8_conv=17, int8_gemm=36, nfp_small=1), 32),
+    ("vittiny", "texture_nfp"): (dict(int8_conv=1, int8_gemm=48, nfp_small=1), 0),
+    ("mobilenetv3", "gap_only"): (dict(int8_gemm=36), 0),
+    ("mobilenetv3", "multi_stage_nfp"): (dict(int8_gemm=37, nfp_small=2, nfp_large=3), 0),
+}
+
+
+def seeded_weights(get_model, init_params, model_type, variant, path):
+    """Save to ``path`` the weights of ``init_params`` seed 0 with the
+    BatchNorm statistics recalibrated on one batch of 8 on the card
+    (``recalibrate_batchnorm``: with identity statistics MobileNetV3's
+    logits agree to 1e-7 and nothing is compared)."""
+    model = init_params(get_model(model_type, variant, 21), torch.Generator().manual_seed(0))
+    model = model.to(device="cuda", memory_format=torch.channels_last)
+    x = torch.from_numpy(np.random.default_rng(34).standard_normal((8, 224, 224, 3))
+                         .astype(np.float32)).to("cuda")
+    recalibrate_batchnorm(model, x)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
+
+
+def profile_split(tag, model, x, ms):
+    """A torch.profiler split of one forward: K4, K5 and the rest."""
+    with torch.inference_mode():
+        busy, n_kernels, by_name = device_profile(lambda: model(x))
+    if not n_kernels:
+        print(f"{tag}: forward B={x.shape[0]} torch.profiler recorded no device events: "
+              f"device time not measured")
+        return
+    k4 = sum(t for n, t in by_name.items() if "int8_gemm_kernel" in n)
+    k5 = sum(t for n, t in by_name.items() if "int8_conv_kernel" in n)
+    print(f"{tag}: forward B={x.shape[0]} torch.profiler: {n_kernels:.0f} kernels, {busy:.3f} ms "
+          f"of device time per forward ({1 - busy / ms:.1%} of the {ms:.3f} ms forward idle); "
+          f"K5 {k5:.3f} ms, K4 {k4:.3f} ms, the rest {busy - k4 - k5:.3f} ms per forward; "
+          f"most time: " + top3(by_name))
+
+
+def serve_int8(Predictor, launches, model_type, variant, checkpoint=None, seed=6):
+    """An int8 ``Predictor`` (21 classes, B=32, 224 px) answers the three
+    requests, dynamic and then ``calibrate()``d on 64 images, with the
+    launches of ``INT8_PATHS`` per batch and, calibrated, one s8-emitting
+    K4 or K5 launch per chain and batch; each run against a CPU int8
+    ``Predictor`` with the same weights (the calibrated one given the
+    card's scales and chains); then forward ms at B=32 and B=128 beside
+    fp32, the host's enqueue time and a profiler split. Returns its
+    launches of each kernel."""
+    kw = dict(model_type=model_type, model_variant=variant, num_classes=21, batch_size=32,
+              input_size=224, quantize="int8", checkpoint=checkpoint)
+    name = f"{model_type} {variant}"
     t0 = time.perf_counter()
     pred = Predictor(**kw, device="cuda")
-    print(f"serve resnet18 int8: Predictor(resnet18, texture_nfp, 21 classes, batch_size=32, "
-          f"224 px, quantize='int8') on cuda in {time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(6)
+    print(f"serve int8 {name}: Predictor(21 classes, batch_size=32, 224 px, quantize='int8', "
+          f"{'seeded weights' if checkpoint is None else 'seeded, BatchNorm recalibrated'}) "
+          f"on cuda in {time.perf_counter() - t0:.2f} s")
+    per_batch, want_chains = INT8_PATHS[(model_type, variant)]
+    rng = np.random.default_rng(seed)
     requests = requests_of(rng)
     batches = sum(-(-len(r) // 32) for r in requests)
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -969,50 +1128,131 @@ def serve_resnet18_int8(Predictor, launches):
     total = {k: 0 for k in launches.wrappers}
 
     for tier in ("dynamic", "calibrated"):
-        tag = f"serve resnet18 int8 {tier}"
+        tag = f"serve int8 {name} {tier}"
         if tier == "calibrated":
             t0 = time.perf_counter()
             n_layers = pred.calibrate([rng.random((256, 256, 3), dtype=np.float32)
                                        for _ in range(64)])
-            print(f"{tag}: calibrate() on 64 images: {n_layers} layers, "
-                  f"{len(pred._int8_chains or {})} chains, in {time.perf_counter() - t0:.2f} s")
+            chains = len(pred._int8_chains or {})
+            print(f"{tag}: calibrate() on 64 images: {n_layers} layers, {chains} chains, "
+                  f"in {time.perf_counter() - t0:.2f} s")
+            if chains != want_chains:
+                raise AssertionError(f"{tag}: {chains} chains, expected {want_chains}")
         pred.predict(requests[0])  # warm-up
         launches.reset()
         outs, lat = answer(pred, requests, tag)
         counts, s8 = launches.read(), launches.s8()
-        want = dict(nfp_small=batches, nfp_large=0, nfp_strip=0, int8_gemm=3 * batches,
-                    int8_conv=17 * batches)
-        want_s8 = 8 * batches if tier == "calibrated" else 0
+        want = {k: per_batch.get(k, 0) * batches for k in counts}
+        want_s8 = len(pred._int8_chains or {}) * batches
         if counts != want or s8 != want_s8:
             raise AssertionError(f"{tag}: launches {counts}, {s8} emitting s8; expected {want}, "
-                                 f"{want_s8} emitting s8 (17 K5, 3 K4, 1 K1 per batch)")
+                                 f"{want_s8} emitting s8 ({per_batch} per batch)")
         total = {k: total[k] + counts[k] for k in total}
         print(f"{tag}: requests of {[len(r) for r in requests]} images answered in "
-              f"{[round(t * 1e3, 2) for t in lat]} ms; launches {counts}, {s8} K5 launches "
-              f"emitting s8, over {batches} batches")
+              f"{[round(t * 1e3, 2) for t in lat]} ms; launches {counts}, {s8} K4 and K5 "
+              f"launches emitting s8, over {batches} batches")
 
         def copy_calibration(cpu):
-            cpu._act_scales, cpu._int8_chains = dict(pred._act_scales), dict(pred._int8_chains)
+            cpu._act_scales = dict(pred._act_scales)
+            cpu._int8_chains = dict(pred._int8_chains) if pred._int8_chains else None
             cpu._rebuild()
 
-        match_cpu(Predictor, pred, kw, [(pred.preprocess(r), o) for r, o in zip(requests, outs)],
-                  tag, setup=copy_calibration if tier == "calibrated" else None)
+        batches_out = [(pred.preprocess(r), o) for r, o in zip(requests, outs)]
+        match_cpu_int8(Predictor, pred, kw, batches_out[1:] + batches_out[:1], tag,
+                       setup=copy_calibration if tier == "calibrated" else None,
+                       exact=int8_free_running(model_type, variant))
         for b, x in xs.items():
             ms = forward_ms(pred.model, x, tag)
             if tier == "dynamic":
-                forward_ms(fp32, x, "serve resnet18 fp32 (same run)")
-            with torch.inference_mode():
-                busy, n_kernels, by_name = device_profile(lambda: pred.model(x))
-            if not n_kernels:
-                print(f"{tag}: forward B={b} torch.profiler recorded no device events: "
-                      f"device time not measured")
-                continue
-            k4 = sum(t for n, t in by_name.items() if "int8_gemm_kernel" in n)
-            k5 = sum(t for n, t in by_name.items() if "int8_conv_kernel" in n)
-            print(f"{tag}: forward B={b} torch.profiler: {n_kernels:.0f} kernels, {busy:.3f} ms "
-                  f"of device time per forward ({1 - busy / ms:.1%} of the {ms:.3f} ms forward "
-                  f"idle); K5 {k5:.3f} ms, K4 {k4:.3f} ms per forward; most time: "
-                  + top3(by_name))
+                forward_ms(fp32, x, f"serve fp32 {name} (same run)")
+            profile_split(tag, pred.model, x, ms)
+    return total
+
+
+def serve_int8_backbones(Predictor, launches, get_model, init_params):
+    """The int8 paths past ResNet18: ResNet50 and ViT-Tiny +
+    texture_nfp and MobileNetV3 + gap_only and multi_stage_nfp
+    (``serve_int8``; MobileNetV3's BatchNorm statistics recalibrated).
+    Returns the launches."""
+    total = None
+    for (model_type, variant), seed in zip(list(INT8_PATHS)[1:], range(40, 44)):
+        with tempfile.TemporaryDirectory() as d:
+            checkpoint = None
+            if model_type == "mobilenetv3":
+                checkpoint = os.path.join(d, "weights.pt")
+                seeded_weights(get_model, init_params, model_type, variant, checkpoint)
+            counts = serve_int8(Predictor, launches, model_type, variant, checkpoint, seed)
+        total = counts if total is None else {k: total[k] + counts[k] for k in total}
+    return total
+
+
+def int8_layer_calls(model_type, variant):
+    """int8 layer calls per forward of a registry pair, as the JAX
+    interceptor replaces them (tests/test_torch_int8_models.py holds the
+    port to the same table on all 63 pairs)."""
+    if variant == "texture_nfp_intermediate":
+        return 2
+    if variant in ("nfp_insert", "mid_nfp", "multi_stage_nfp"):
+        return 37
+    base = dict(resnet18=20, resnet50=53, mobilenetv3=36, vittiny=49)[model_type]
+    if variant == "texture_fractal":
+        return base + 1
+    if variant == "se_gate":
+        return base + 4
+    if variant in ("gap_mlp", "nfp_conv_mlp", "gap_nfp_conv_mlp_concat",
+                   "gap_nfp_noconv_mlp_concat", "nfp_head", "multi_radius_nfp",
+                   "adaptive_fusion_nfp"):
+        return base + 2
+    return base
+
+
+def int8_heads(Predictor, launches, get_model, init_params):
+    """One batch of 8 at 224 px through a dynamic int8 ``Predictor`` for
+    every pair of the registry that ``INT8_PATHS`` leaves out (seeded
+    weights, BatchNorm statistics recalibrated), against the CPU int8
+    ``Predictor``: K4 runs each int8 linear and 1x1 conv call and K5 each
+    other int8 conv call, as forward hooks count them, and their sum is
+    ``int8_layer_calls``. Returns the launches."""
+    from neighbour_feature_pooling_tpu_torch.models import MODEL_VARIANTS
+    from neighbour_feature_pooling_tpu_torch.quant import Int8Conv2d, Int8Linear
+    x = np.random.default_rng(35).standard_normal((8, 224, 224, 3)).astype(np.float32)
+    total = dict(nfp_small=0, nfp_large=0, nfp_strip=0, int8_gemm=0, int8_conv=0)
+    pairs = [(mt, v) for mt, vs in MODEL_VARIANTS.items() for v in vs
+             if (mt, v) not in INT8_PATHS]
+    for model_type, variant in pairs:
+        tag = f"int8 heads {model_type}/{variant}"
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "weights.pt")
+            seeded_weights(get_model, init_params, model_type, variant, path)
+            kw = dict(model_type=model_type, model_variant=variant, num_classes=21,
+                      batch_size=8, input_size=224, quantize="int8", checkpoint=path)
+            pred = Predictor(**kw, device="cuda")
+        calls = dict(int8_gemm=0, int8_conv=0)
+
+        def count(mod, args):
+            gemm = isinstance(mod, Int8Linear) or mod.gemm
+            calls["int8_gemm" if gemm else "int8_conv"] += 1
+
+        hooks = [m.register_forward_pre_hook(count) for m in pred.model.modules()
+                 if isinstance(m, (Int8Conv2d, Int8Linear))]
+        launches.reset()
+        out = pred.predict(x, preprocessed=True)
+        counts = launches.read()
+        for h in hooks:
+            h.remove()
+        want = int8_layer_calls(model_type, variant)
+        if (counts["int8_gemm"], counts["int8_conv"]) != (calls["int8_gemm"], calls["int8_conv"]) \
+                or sum(calls.values()) != want:
+            raise AssertionError(f"{tag}: K4 {counts['int8_gemm']} and K5 {counts['int8_conv']} "
+                                 f"launches for {calls} int8 layer calls; expected {want} calls")
+        if not np.isfinite(out["probabilities"]).all():
+            raise AssertionError(f"{tag}: non-finite probabilities")
+        print(f"{tag}: launches {counts} for {want} int8 layer calls")
+        match_cpu_int8(Predictor, pred, kw, [(x, out)], tag,
+                       exact=int8_free_running(model_type, variant))
+        total = {k: total[k] + counts[k] for k in total}
+        del pred
+    print(f"int8 heads: {len(pairs)} pairs ran: " + ", ".join(f"{mt}/{v}" for mt, v in pairs))
     return total
 
 
@@ -1502,7 +1742,11 @@ def main():
     per_path.append(phase("nfp_at_layer", nfp_at_layer, Predictor, launches))
     per_path.append(phase("texture heads", texture_heads, Predictor, launches, get_model,
                           init_params))
-    per_path.append(phase("serve resnet18 int8", serve_resnet18_int8, Predictor, launches))
+    per_path.append(phase("serve resnet18 int8", serve_int8, Predictor, launches, "resnet18",
+                          "texture_nfp"))
+    per_path.append(phase("serve int8 backbones", serve_int8_backbones, Predictor, launches,
+                          get_model, init_params))
+    per_path.append(phase("int8 heads", int8_heads, Predictor, launches, get_model, init_params))
     per_path.append(phase("kernel entry", kernel_entry, launches, bench_nfp_kernel, nfp_kernel,
                           nfp_reference))
     none = dict(nfp_small=0, nfp_large=0, nfp_strip=0, int8_gemm=0, int8_conv=0)

@@ -14,13 +14,19 @@ keys, then values; queries are scaled by ``Dh**-0.5`` before QKᵀ.
 
 An input other than 224 px resamples the 14×14 grid of the position
 embedding bilinearly with antialiasing, as ``jax.image.resize`` does when
-it shrinks. The JAX module pads the token sequence to a multiple of 8
-(``seq_align``) and masks the padded keys with −1e9, whose softmax weight
-is exactly 0 in fp32: a TPU layout choice. Here attention runs over the
-real 1+N tokens.
+it shrinks. The JAX module pads the token sequence with zero rows to a
+multiple of 8 (``seq_align``; 197 → 200 at 224 px) and masks the padded
+keys with −1e9, whose softmax weight is exactly 0 in fp32: a TPU layout
+choice, which leaves the fp32 tokens as they are. Here attention runs over
+the real 1+N tokens unless ``seq_align`` > 1. The int8 tier sets it to the
+JAX value (``quant.py``): the pad rows flow through every LayerNorm and
+projection, so they enter each per-tensor activation amax, and on some
+weights they set it.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -45,13 +51,16 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """``key_mask``: ``(1, T)`` bool, False for the keys no query attends to."""
         b, t, d = x.shape
         h = self.num_heads
         hd = d // h
         q, k, v = (u.reshape(b, t, h, hd).transpose(1, 2)
                    for u in self.qkv(x).split(d, dim=-1))
-        y = F.scaled_dot_product_attention(q * hd ** -0.5, k, v, scale=1.0)
+        y = F.scaled_dot_product_attention(q * hd ** -0.5, k, v, attn_mask=key_mask,
+                                           scale=1.0)
         return self.proj(y.transpose(1, 2).reshape(b, t, d))
 
 
@@ -75,8 +84,9 @@ class Block(nn.Module):
         self.norm2 = _layer_norm(dim)
         self.mlp = Mlp(dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), key_mask)
         return x + self.mlp(self.norm2(x))
 
 
@@ -97,6 +107,10 @@ class ViT(nn.Module):
     def __init__(self, in_chans: int = 3, embed_dim: int = 192, depth: int = 12,
                  num_heads: int = 3):
         super().__init__()
+        #: > 1 pads the blocks' sequence with zero rows to a multiple of it, as
+        #: the JAX module does (module docstring); the int8 tier sets it. The
+        #: pad rows are stripped before the final norm, a per-row op.
+        self.seq_align = 1
         self.patch_embed = _PatchEmbed(in_chans, embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + GRID * GRID, embed_dim))
@@ -116,8 +130,16 @@ class ViT(nn.Module):
         x = self.patch_embed(x)
         b, gh, gw, d = x.shape
         x = torch.cat([self.cls_token.expand(b, 1, d), x.reshape(b, gh * gw, d)], dim=1)
-        x = self.blocks(x + self._pos_embed(gh, gw))
-        return self.norm(x)
+        x = x + self._pos_embed(gh, gw)
+        t = x.shape[1]
+        pad = -t % self.seq_align if self.seq_align > 1 else 0
+        key_mask = None
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+            key_mask = (torch.arange(t + pad, device=x.device) < t)[None]
+        for blk in self.blocks:
+            x = blk(x, key_mask)
+        return self.norm(x[:, :t])
 
 
 def tokens_to_map(tokens: torch.Tensor) -> torch.Tensor:

@@ -134,8 +134,10 @@ class FractalPoolingHead(nn.Module):
     def forward(self, x: torch.Tensor, generator: Generator = None) -> torch.Tensor:
         conv, drop, bn = self.conv1
         identity = torch.sigmoid(x)
-        out = drop(_nhwc(conv(_nchw(x))), generator)
-        out = torch.sigmoid(_nhwc(bn(_nchw(out)))) - identity
+        out = conv(_nchw(x))
+        if drop.training:  # in eval the BN reads the conv's own output: int8 folds it
+            out = _nchw(drop(_nhwc(out), generator))
+        out = torch.sigmoid(_nhwc(bn(out))) - identity
         return gap2d(out) * gdcb_fractal_dim(out)
 
 

@@ -155,7 +155,8 @@ def int8_gemm(a: torch.Tensor, b: torch.Tensor,
     must be contiguous and on one device. K4 reads ``pack_weight(b)``:
     pass it as ``b_packed`` when ``b`` is constant, else the CUDA path
     packs in the call (one more torch op per call). On a CPU input
-    ``b_packed`` is ignored. ``int8_gemm.launches`` counts kernel launches.
+    ``b_packed`` is ignored. ``int8_gemm.launches`` counts kernel launches,
+    ``int8_gemm.s8_launches`` those that emit int8.
     """
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"int8_gemm needs int8 operands, got {a.dtype}/{b.dtype}")
@@ -186,7 +187,9 @@ def int8_gemm(a: torch.Tensor, b: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"int8_gemm kernel launch failed: cudaError_t {rc}")
     int8_gemm.launches += 1
+    int8_gemm.s8_launches += out_dtype == torch.int8
     return out
 
 
 int8_gemm.launches = 0
+int8_gemm.s8_launches = 0

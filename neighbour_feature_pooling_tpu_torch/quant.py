@@ -26,7 +26,18 @@ the Pallas kernels on a TPU, has no counterpart. The JAX package's own
 tests hold its two routes bit-identical, so the port matches both.
 Ineligible layers stay fp32: grouped/depthwise or dilated convs, non-zero
 padding modes, contractions below ``min_contraction``, the classifier
-(``fc``), and the texture pooling ops.
+(``fc``), and the texture pooling ops. The int8 layers are the JAX
+interceptor's, pair by pair, for every (backbone, variant) of the
+registry: each eligible ``nn.Conv``, ``nn.Dense`` and ViT attention
+projection there (``proj_qkv``, ``proj_out``) is an ``nn.Conv2d`` or
+``nn.Linear`` here.
+
+A ViT served int8 takes the JAX ViT's token layout, 197 tokens padded with
+zero rows to 200 (``VIT_SEQ_ALIGN``, ``models/backbones/vit.py``): the pad
+rows flow through every quantized projection, so they enter the per-tensor
+amax, dynamic and calibrated, and on some weights they set it. Every
+function here that runs or quantizes a model sets that layout on it first
+(``_int8_layout``); the fp32 path keeps 197 tokens.
 """
 
 from __future__ import annotations
@@ -37,15 +48,20 @@ import functools
 import warnings
 from typing import Dict, Iterator, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from .models.backbones.vit import ViT
 from .ops.int8_conv import int8_conv2d, pack_conv_weight
 from .ops.int8_gemm import int8_gemm, pack_weight
 
-__all__ = ["QuantConfig", "Int8Conv2d", "Int8Linear", "build_bn_folding",
+__all__ = ["QuantConfig", "Int8Conv2d", "Int8Linear", "VIT_SEQ_ALIGN", "build_bn_folding",
            "build_int8_chains", "calibrate_act_scales", "prequantize_weights",
            "quantize_model"]
+
+#: the JAX ViT's ``seq_align``, which its int8 tier runs with
+VIT_SEQ_ALIGN = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +150,16 @@ def _eligible(name: str, mod: nn.Module, cfg: QuantConfig) -> bool:
 
 def _eligible_layers(model: nn.Module, cfg: QuantConfig) -> Iterator[Tuple[str, nn.Module]]:
     return ((n, m) for n, m in model.named_modules() if _eligible(n, m, cfg))
+
+
+def _int8_layout(model: nn.Module) -> nn.Module:
+    """Give every ViT in ``model``, in place, the JAX ViT's padded token
+    layout (``seq_align = VIT_SEQ_ALIGN``; module docstring); returns
+    ``model``."""
+    for mod in model.modules():
+        if isinstance(mod, ViT):
+            mod.seq_align = VIT_SEQ_ALIGN
+    return model
 
 
 def prequantize_weights(model: nn.Module, config: Optional[QuantConfig] = None
@@ -285,8 +311,10 @@ def quantize_model(model: nn.Module, config: Optional[QuantConfig] = None,
     ``nn.Identity``; returns ``model``. ``weights`` are
     :func:`prequantize_weights`' (computed here when not given). No fp32
     weight of a swapped layer stays in the model (the counterpart of the
-    JAX ``make_int8_interceptor`` + ``strip_prequantized``)."""
+    JAX ``make_int8_interceptor`` + ``strip_prequantized``). Its ViTs take
+    the int8 token layout (``_int8_layout``)."""
     cfg = config or QuantConfig()
+    _int8_layout(model)
     if weights is None:
         weights = prequantize_weights(model, cfg)
     folding = cfg.bn_folding or {}
@@ -318,8 +346,10 @@ def calibrate_act_scales(model: nn.Module, batches: Sequence[torch.Tensor],
     """Static activation calibration: runs the float ``model`` over
     ``batches`` and returns ``{module name: max|x| / 127}`` over all of
     them for every layer the quantizer would replace (a Python float, as
-    the JAX ``calibrate_act_scales`` computes it)."""
+    the JAX ``calibrate_act_scales`` computes it), with the model's ViTs
+    in the int8 token layout (``_int8_layout``), as they serve."""
     cfg = config or QuantConfig()
+    _int8_layout(model)
     seen: Dict[str, torch.Tensor] = {}
 
     def observe(name):
@@ -357,6 +387,7 @@ def build_bn_folding(model: nn.Module, sample: torch.Tensor,
     {bn name, …}}`` for ``QuantConfig(bn_folding=...)``.
     """
     cfg = config or QuantConfig()
+    _int8_layout(model)
     events = []
     handles = []
     for name, mod in model.named_modules():
@@ -382,7 +413,11 @@ def build_bn_folding(model: nn.Module, sample: torch.Tensor,
         with torch.no_grad():
             gamma = bn.weight if bn.affine else torch.ones_like(bn.running_mean)
             beta = bn.bias if bn.affine else torch.zeros_like(bn.running_mean)
-            f = gamma.float() / torch.sqrt(bn.running_var.float() + bn.eps)
+            # numpy's fp32 sqrt is correctly rounded; torch's CPU one is not
+            # (an ulp off on ~1% of values) and its CUDA one is: computed here,
+            # the affine is the same bits on the card and the CPU
+            var = (bn.running_var.float() + bn.eps).cpu().numpy()
+            f = gamma.float() / torch.from_numpy(np.sqrt(var)).to(gamma.device)
             convs[conv_name] = (f, beta.float() - bn.running_mean.float() * f)
         bns.add(bn_name)
     return {"convs": convs, "bns": bns}
@@ -408,6 +443,7 @@ def build_int8_chains(model: nn.Module, sample: torch.Tensor,
     scale)}`` for ``QuantConfig(int8_chains=...)``.
     """
     cfg = config or QuantConfig()
+    _int8_layout(model)
     folding = (cfg.bn_folding or {}).get("convs", {})
     sample = sample[:1]
     records = []

@@ -9,15 +9,11 @@ argmax labels out. It runs on ``device="cuda"`` unless the caller passes
 whatever ``models.get_model`` builds, every (type, variant) pair of the
 JAX registry, whose options reach the model through ``model_kwargs``.
 
-``quantize="int8"`` serves the int8 tier of ``quant.py`` for ResNet18
-(``gap_only``, ``texture_nfp``) and MobileNetV3's ``gap_only``,
-``texture_nfp``, ``texture_nfp_intermediate``, ``mid_nfp``,
-``multi_stage_nfp`` and ``nfp_insert``; every other pair (ResNet50,
-ViT-Tiny, ``nfp_at_layer``, the other texture heads and the legacy grid)
-raises, naming ROADMAP.md Queue 1 item 6: no test holds its int8 logits
-against the JAX int8 tier yet. Weights
-quantized once at build, BN folded into the conv epilogues (``fold_bn``),
-every eligible conv and linear through the int8 kernels K4 and K5, and
+``quantize="int8"`` serves the int8 tier of ``quant.py`` for every pair,
+as the JAX ``Predictor(quantize="int8")`` does: the same layers go int8
+(``quant.py``'s module docstring). Weights quantized once at build, BN
+folded into the conv epilogues (``fold_bn``), every eligible conv and
+linear through the int8 kernels K4 and K5, and
 ``calibrate`` for static activation scales and s8 chains. The float
 weights stay on the host for ``calibrate`` and ``reload``.
 
@@ -34,19 +30,12 @@ import numpy as np
 import torch
 
 from .data.transforms import TransformConfig, eval_transform
-from .models import canonical_model_type, get_model, init_params
+from .models import get_model, init_params
 from .quant import (QuantConfig, build_bn_folding, build_int8_chains,
                     calibrate_act_scales, prequantize_weights, quantize_model)
 from .train.checkpoint import checkpoint_exists, restore_for_inference
 
 __all__ = ["Predictor"]
-
-#: the (type, variants) whose int8 tier is held against the JAX package's
-_INT8_PORTED = {
-    "resnet18": ("gap_only", "texture_nfp"),
-    "mobilenetv3": ("gap_only", "texture_nfp", "texture_nfp_intermediate", "mid_nfp",
-                    "multi_stage_nfp", "nfp_insert"),
-}
 
 
 def _resolve_device(device: str) -> torch.device:
@@ -95,12 +84,6 @@ class Predictor:
         if self.quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {self.quantize!r}; "
                              "expected None or 'int8'")
-        if self.quantize == "int8" and self.model_variant.lower() not in _INT8_PORTED.get(
-                canonical_model_type(self.model_type), ()):
-            raise NotImplementedError(
-                f"quantize='int8' on {self.model_type}/{self.model_variant} is not ported "
-                f"yet: ROADMAP.md Queue 1 item 6 (int8 for ResNet50, ViT, nfp_at_layer, "
-                f"the other texture heads and the legacy grid)")
         self.transform = self.transform or TransformConfig(
             resize_size=self.resize_size, input_size=self.input_size)
         model = self._new_model()

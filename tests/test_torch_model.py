@@ -21,6 +21,7 @@ import torch
 from neighbour_feature_pooling_tpu.models import get_model as jax_get_model
 from neighbour_feature_pooling_tpu.models.import_torch import import_reference_checkpoint
 from neighbour_feature_pooling_tpu_torch.models import get_model, state_dict_from_flax
+from neighbour_feature_pooling_tpu_torch.quant import Int8Conv2d
 from neighbour_feature_pooling_tpu_torch.serve import Predictor
 
 NUM_CLASSES = 5
@@ -184,13 +185,12 @@ def test_state_dict_round_trips_through_the_jax_importer():
     ("resnet50", "gap_mlp", ValueError, "Unknown model_variant"),
     ("vittiny", "se_gate", ValueError, "Unknown model_variant"),
     ("resnet18", "no_such_head", ValueError, "Unknown model_variant"),
-    ("resnet18", "texture_fractal", NotImplementedError, "ROADMAP.md Queue 1 item 6"),
-    ("mobilenetv3", "gap_nfp_conv_mlp_concat", NotImplementedError, "ROADMAP.md Queue 1 item 6"),
+    ("resnet18", "texture_fractal", None, None),
+    ("mobilenetv3", "gap_nfp_conv_mlp_concat", None, None),
 ])
 def test_unported_variants_raise(model_type, variant, error, match):
     """A pair the JAX registry lacks raises ValueError in both packages;
-    every pair of the registry builds, and int8 serving of a texture head
-    the int8 tests do not cover names its ROADMAP item."""
+    every pair of the registry builds, and serves int8."""
     if error is ValueError:
         with pytest.raises(ValueError, match=match):
             jax_get_model(model_type, variant, NUM_CLASSES)
@@ -198,5 +198,6 @@ def test_unported_variants_raise(model_type, variant, error, match):
             get_model(model_type, variant, NUM_CLASSES)
         return
     assert get_model(model_type, variant, NUM_CLASSES).model_variant == variant
-    with pytest.raises(error, match=match):
-        Predictor(model_type, variant, NUM_CLASSES, quantize="int8", device="cpu")
+    pred = Predictor(model_type, variant, NUM_CLASSES, quantize="int8", fold_bn=False,
+                     device="cpu")
+    assert any(isinstance(m, Int8Conv2d) for m in pred.model.modules())

@@ -121,17 +121,6 @@ def test_unknown_quantize_mode_raises():
         Predictor(**KW, quantize="int4", device="cpu")
 
 
-@pytest.mark.parametrize("model_type,variant", [("resnet50", "texture_nfp"),
-                                                ("vittiny", "gap_only"),
-                                                ("resnet18", "nfp_at_layer"),
-                                                ("resnet18", "texture_deepten"),
-                                                ("resnet18", "se_gate")])
-def test_int8_on_unported_models_raises(model_type, variant):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        Predictor(**dict(KW, model_type=model_type, model_variant=variant), quantize="int8",
-                  device="cpu")
-
-
 def test_calibrate_requires_int8(predictors):
     _, pred, _ = predictors
     with pytest.raises(ValueError, match="int8"):
